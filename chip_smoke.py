@@ -4,29 +4,43 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
     python3 chip_smoke.py
 
-It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the shapes of the main
-path, then serves GPT-2 small (``BASE_CONFIG``, random weights from a
-seed) through ``ContinuousBatcher`` + ``ServingEngine`` on the paged
-kernel and again on the plain reference path, and checks that both give
-the same tokens. Each phase prints one JSON line; the last two lines are
-the per-kernel summary and ``{"ok": true, "device": {...}}``. Any failed
-phase exits non-zero without that last line. Without CUDA it exits 2.
+It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
+and holds each against its plain PyTorch version at the shapes of its
+path. Then it drives both ported paths:
+
+* serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
+  through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
+  and again on the plain reference path; both must give the same tokens;
+* train: ResNet-50 at full width (224x224, batch 128, bf16 compute on
+  fp32 master params) through ``TrainJob`` + ``run_training``, 30 steps
+  with ``fused_sgd`` (the multi-tensor kernel), the same 30 with ``sgd``,
+  and a resume of the first run from its step-10 checkpoint; the losses
+  must agree as stated in ``phase_train``.
+
+Each phase prints one JSON line; the last two lines are the per-kernel
+summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
+non-zero without that last line. Without CUDA it exits 2.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from paddle_operator_tpu_torch.models import gpt
-from paddle_operator_tpu_torch.ops import _kernels, attention
+from paddle_operator_tpu_torch import bridge
+from paddle_operator_tpu_torch.models import gpt, resnet
+from paddle_operator_tpu_torch.ops import _kernels, attention, optim
+from paddle_operator_tpu_torch.parallel import build_train_step
+from paddle_operator_tpu_torch.runner import TrainJob, run_training
 from paddle_operator_tpu_torch.serving import (
     ContinuousBatcher, Request, RequestQueue, ServingEngine)
 from paddle_operator_tpu_torch.testing import paged_decode_case
@@ -39,7 +53,13 @@ FP32_FLOPS = 67e12
 KERNEL_TOL = 1e-5          # the JAX package's kernel-vs-reference bound
 PAGED_REPLACES = "paddle_operator_tpu/ops/attention_pallas.py:525"
 PAGED_SOURCE = "paddle_operator_tpu_torch/csrc/paged_decode.cu"
+SGD_REPLACES = "paddle_operator_tpu/ops/optim.py:283"
+SGD_SOURCE = "paddle_operator_tpu_torch/csrc/fused_sgd.cu"
+#: bf16 dense tensor-core FLOP/s (H100 SXM data sheet)
+BF16_FLOPS = 989e12
 DEVICE = "cuda"
+#: the train phase's model and batch: ResNet-50 at full width
+DEPTH, CLASSES, IMAGE, BATCH = 50, 1000, 224, 128
 
 
 def emit(obj) -> None:
@@ -57,16 +77,17 @@ def hbm_rate(name: str) -> float:
     fail("no HBM rate known for card %r" % name)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, sleep_cycles: int = 2_000_000) -> float:
     """Median device time of ``fn()`` in ms: each rep starts with the
     50 MB L2 flushed (the decode step finds its pages cold) and a sleep
-    that lets the host enqueue the call before the device reaches it, so
-    host overhead is not counted."""
+    of ``sleep_cycles`` that lets the host enqueue the call before the
+    device reaches it, so host overhead is not counted as long as the
+    enqueue is shorter than the sleep."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     times = []
     for _ in range(reps + 3):
         flush.zero_()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -74,6 +95,19 @@ def device_ms(fn, reps: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times[3:])
+
+
+def host_call_ms(fn, reps: int = 20) -> float:
+    """Median host time of one ``fn()`` call (the enqueue, the device
+    idle before it) in ms."""
+    times = []
+    for _ in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
     return statistics.median(times[3:])
 
 
@@ -153,19 +187,117 @@ def _paged_measure(name: str, rate: float) -> dict:
             "bytes": nbytes}
 
 
+def _resnet_sgd_leaves(seed: int = 0):
+    """The fused-SGD operands of the train path: every leaf of
+    ``resnet.init(depth=50)`` (267 leaves, 25,610,152 fp32 elements), a
+    grad from numpy ``seed`` for each leaf autograd reaches and None for
+    the BN running stats (as in training), zero momentum."""
+    tree = resnet.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                       DEPTH, CLASSES)
+    flat = bridge.flatten(tree)
+    rng = np.random.default_rng(seed)
+    grads = [None if name.endswith(("/mean", "/var")) else
+             torch.from_numpy(rng.standard_normal(
+                 tuple(p.shape), dtype=np.float32) * 0.01).to(DEVICE)
+             for name, p in flat.items()]
+    return tree, list(flat.values()), grads
+
+
+def _sgd_measure(rate: float) -> dict:
+    """Kernel against plain on the ResNet-50 tree: with and without
+    ``make_wd_mask``, with and without Nesterov, 5 steps of a cosine lr,
+    wd 1e-4, momentum 0.9. Both paths round every product and sum alone,
+    so the stated tolerance is 0: bitwise equal at every step."""
+    tree, params, grads = _resnet_sgd_leaves()
+    sched = optim.cosine_schedule(0.4, 5, 1)
+    variants, worst, first_bitwise = [], 0.0, True
+    for masked in (False, True):
+        mask = optim.make_wd_mask(tree) if masked else None
+        decays = [1e-4 if on else 0.0 for on in
+                  (bridge.leaves(mask) if masked else [True] * len(params))]
+        for nesterov in (False, True):
+            pk = [p.clone() for p in params]
+            pp = [p.clone() for p in params]
+            mk = [torch.zeros_like(p) for p in params]
+            mp = [torch.zeros_like(p) for p in params]
+            errs = []
+            for step in range(1, 6):
+                lr = sched(torch.tensor(step, dtype=torch.int32,
+                                        device=DEVICE))
+                optim.multi_tensor_sgd(pk, grads, mk, decays, lr, 0.9,
+                                       nesterov)
+                optim._plain_multi_tensor_sgd(pp, grads, mp, decays, lr,
+                                              0.9, nesterov)
+                torch.cuda.synchronize()
+                if step == 1:
+                    first_bitwise &= all(torch.equal(a, b)
+                                         for a, b in zip(mk, mp))
+                errs.append(max(torch.max(torch.abs(a - b)).item()
+                                for a, b in zip(pk + mk, pp + mp)
+                                if a.numel()))
+            worst = max(worst, max(errs))
+            variants.append({"wd_mask": masked, "nesterov": nesterov,
+                             "max_abs_err_by_step": errs})
+    # timing on the unmasked, non-Nesterov update of the training run
+    decays = [1e-4] * len(params)
+    lr = sched(torch.tensor(3, dtype=torch.int32, device=DEVICE))
+    moms = [torch.zeros_like(p) for p in params]
+    kernel = lambda: optim.multi_tensor_sgd(  # noqa: E731
+        params, grads, moms, decays, lr, 0.9)
+    plain = lambda: optim._plain_multi_tensor_sgd(  # noqa: E731
+        params, grads, moms, decays, lr, 0.9, False)
+    # library yardstick (never used by the port): torch's fused SGD on the
+    # same tree, zero grads for the BN stats; its first-step buffer is the
+    # reference's with dampening 0
+    lib_params = [p.clone() for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g.clone()
+    lib = torch.optim.SGD(lib_params, lr=0.1, momentum=0.9,
+                          weight_decay=1e-4, fused=True)
+    lib.step()
+    # a ~50 ms sleep covers each call's host enqueue (the Python descriptor
+    # table, ~1,700 plain launches), so these are device times; the host
+    # side is host_ms
+    ms, plain_ms, library_ms = (device_ms(f, sleep_cycles=100_000_000)
+                                for f in (kernel, plain, lib.step))
+    host_ms = {name: host_call_ms(f) for name, f in
+               (("kernel", kernel), ("plain", plain), ("library", lib.step))}
+    n = sum(p.numel() for p in params)
+    nbytes = sum((16 + (4 if g is not None else 0)) * p.numel()
+                 for p, g in zip(params, grads))
+    flops = 6 * n
+    bytes_ms, flops_ms = 1e3 * nbytes / rate, 1e3 * flops / FP32_FLOPS
+    return {"leaves": len(params), "elements": n, "bytes": nbytes,
+            "variants": variants, "max_abs_err": worst,
+            "first_step_momentum_bitwise": first_bitwise,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "host_ms": host_ms, "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
 def phase_kernels(rate: float) -> dict:
     attention.paged_decode_attention.launches = 0
     shapes = [_paged_measure(n, rate) for n in ("ragged", "full_width")]
+    optim.multi_tensor_sgd.launches = 0
+    sgd = _sgd_measure(rate)
     out = {"phase": "kernels", "kernels": [{
         "name": "paged_decode_attention", "replaces": PAGED_REPLACES,
         "source": PAGED_SOURCE, "tolerance": KERNEL_TOL,
         "comparison_launches": attention.paged_decode_attention.launches,
-        "shapes": shapes}]}
+        "shapes": shapes}, dict(
+        {"name": "fused_sgd", "replaces": SGD_REPLACES,
+         "source": SGD_SOURCE, "tolerance": 0.0,
+         "comparison_launches": optim.multi_tensor_sgd.launches}, **sgd)]}
     emit(out)
     for s in shapes:
         if not s["max_abs_err"] <= KERNEL_TOL:
             fail("paged decode kernel off by %g > %g at %s"
                  % (s["max_abs_err"], KERNEL_TOL, s["case"]))
+    if not sgd["first_step_momentum_bitwise"]:
+        fail("fused SGD: step-1 momentum is not bitwise equal to plain")
+    if not sgd["max_abs_err"] <= 0.0:
+        fail("fused SGD kernel off by %g from its plain version (stated "
+             "tolerance: bitwise)" % sgd["max_abs_err"])
     return out
 
 
@@ -233,13 +365,34 @@ def _serve_pass(params, cfg, attn: str, traffic) -> dict:
     return out
 
 
+def _profile_summary(prof, steps: int, unit: str) -> dict:
+    """Device busy time (union of CUDA kernel intervals), kernel count and
+    the top kernels by time, per ``unit`` (iteration or step)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        fail("profile: torch.profiler recorded no CUDA kernel")
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for lo, hi, name in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+        by_name[name] = by_name.get(name, 0.0) + (hi - lo)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"kernels_per_" + unit: len(spans) / steps,
+            "device_busy_ms_per_" + unit: busy / 1e3 / steps,
+            "top_kernels_ms_per_" + unit: [[name[:80], us / 1e3 / steps]
+                                           for name, us in top]}
+
+
 def phase_profile(params, cfg, traffic, warm: int = 10,
                   steps: int = 40) -> dict:
     """Where a decode step's time goes: ``steps`` batcher iterations of a
     full batch under torch.profiler, after ``warm`` iterations. Device
     busy time is the union of the CUDA kernels' intervals; the profiler's
     own host overhead inflates the window's wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     eng, _, batcher, _ = _serving(params, cfg, "paged", traffic)
@@ -253,23 +406,9 @@ def phase_profile(params, cfg, traffic, warm: int = 10,
             batcher.step(eng.step_fn)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        fail("profile: torch.profiler recorded no CUDA kernel")
-    busy, end, by_name = 0.0, float("-inf"), {}
-    for lo, hi, name in spans:
-        busy += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-        by_name[name] = by_name.get(name, 0.0) + (hi - lo)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"phase": "profile", "iterations": steps,
-           "kernels_per_iteration": len(spans) / steps,
-           "device_busy_ms_per_iteration": busy / 1e3 / steps,
-           "profiled_wall_ms_per_iteration": 1e3 * wall / steps,
-           "top_kernels_ms_per_iteration": [
-               [name[:80], us / 1e3 / steps] for name, us in top]}
+           "profiled_wall_ms_per_iteration": 1e3 * wall / steps}
+    out.update(_profile_summary(prof, steps, "iteration"))
     emit(out)
     del eng
     return out
@@ -344,6 +483,221 @@ def phase_serve(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train: ResNet-50 through TrainJob + run_training
+# ---------------------------------------------------------------------------
+
+#: |loss(fused_sgd) - loss(sgd)| allowed over the 30 steps, and between the
+#: resumed run and the first: 0. The kernel is bitwise equal to its plain
+#: version (kernels phase) and cuDNN is held to deterministic algorithms,
+#: so the runs must agree bit for bit.
+TRAIN_TOL = 0.0
+
+
+def _event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+class _StepRecorder:
+    """Wraps a TrainJob's loss and optimizer as a user could: keeps each
+    step's loss on the device (read once, at the end), an event at each
+    forward's start, and events and host time around each update."""
+
+    def __init__(self) -> None:
+        self.losses, self.starts, self.updates, self.update_host = \
+            [], [], [], []
+        self.end = None
+
+    def loss_fn(self, params, batch):
+        ev = _event()
+        ev.record()
+        self.starts.append(ev)
+        loss, aux = resnet.loss_fn(params, batch)
+        self.losses.append(loss.detach())
+        return loss, aux
+
+    def wrap(self, opt: optim.Optimizer) -> optim.Optimizer:
+        def update(grads, state, params):
+            a, b = _event(), _event()
+            a.record()
+            t0 = time.perf_counter()
+            out = opt.update(grads, state, params)
+            self.update_host.append(time.perf_counter() - t0)
+            b.record()
+            self.updates.append((a, b))
+            return out
+        return optim.Optimizer(opt.init, update)
+
+    def host_losses(self) -> list:
+        return torch.stack(self.losses).cpu().tolist()
+
+
+def _train_run(opt, total: int, ckpt_dir: str, make_batch=None):
+    rec = _StepRecorder()
+    job = TrainJob(
+        init_params=lambda gen: resnet.init(gen, DEPTH, CLASSES),
+        loss_fn=rec.loss_fn, optimizer=rec.wrap(opt),
+        make_batch=make_batch or (lambda gen, step: resnet.synthetic_batch(
+            gen, BATCH, IMAGE, CLASSES)),
+        merge_stats=resnet.merge_stats, total_steps=total, log_every=10,
+        checkpoint_every=10, checkpoint_dir=ckpt_dir, seed=0, device=DEVICE)
+    t0 = time.perf_counter()
+    out = run_training(job)
+    rec.end = _event()
+    rec.end.record()    # after the last step and the final checkpoint drain
+    torch.cuda.synchronize()
+    return rec, out, time.perf_counter() - t0
+
+
+def _sgd_opts(kind: str, total: int = 30):
+    sched = optim.cosine_schedule(0.4, total, max(1, total // 20))
+    return getattr(optim, kind)(sched, momentum=0.9, weight_decay=1e-4)
+
+
+def _train_profile(warm: int = 2, steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` train steps (fused_sgd, one device
+    batch), and the step's FLOPs from FlopCounterMode."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    batch = resnet.synthetic_batch(gen, BATCH, IMAGE, CLASSES)
+    step_fn, state = build_train_step(
+        resnet.loss_fn, _sgd_opts("fused_sgd"), resnet.init(gen, DEPTH,
+                                                            CLASSES),
+        batch, merge_stats=resnet.merge_stats)
+    for _ in range(warm):
+        step_fn(state, batch)
+    with FlopCounterMode(display=False) as counter:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = _profile_summary(prof, steps, "step")
+    out.update(profiled_wall_ms_per_step=1e3 * wall / steps,
+               flops_per_step=counter.get_total_flops())
+    return out
+
+
+def phase_train(smi: str) -> dict:
+    """ResNet-50, 224x224, batch 128, bf16 compute on fp32 master params,
+    ``cosine_schedule(0.4, 30, 1)``, momentum 0.9, wd 1e-4, synthetic
+    batches from a seed, through TrainJob + run_training:
+    (a) 30 steps with fused_sgd, checkpoints every 10 steps;
+    (b) the same 30 steps with sgd;
+    (c) (a) resumed from its step-10 checkpoint through restore_latest;
+    then 20 steps on one fixed batch, and a profiled window."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        dirs = {k: os.path.join(tmp, k) for k in "abc"}
+        optim.multi_tensor_sgd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rec_a, out_a, wall_a = _train_run(_sgd_opts("fused_sgd"), 30,
+                                          dirs["a"])
+        launches_a = optim.multi_tensor_sgd.launches
+        peak = torch.cuda.max_memory_allocated()
+        optim.multi_tensor_sgd.launches = 0
+        rec_b, out_b, wall_b = _train_run(_sgd_opts("sgd"), 30, dirs["b"])
+        launches_b = optim.multi_tensor_sgd.launches
+        os.makedirs(dirs["c"])
+        shutil.copytree(os.path.join(dirs["a"], "step_%012d" % 10),
+                        os.path.join(dirs["c"], "step_%012d" % 10))
+        optim.multi_tensor_sgd.launches = 0
+        rec_c, out_c, _ = _train_run(_sgd_opts("fused_sgd"), 30, dirs["c"])
+        launches_c = optim.multi_tensor_sgd.launches
+        fixed = resnet.synthetic_batch(
+            torch.Generator(device=DEVICE).manual_seed(1), BATCH, IMAGE,
+            CLASSES)
+        rec_f, _, _ = _train_run(_sgd_opts("fused_sgd", 20), 20, "",
+                                 make_batch=lambda gen, step: fixed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        cudnn.deterministic, cudnn.benchmark = saved
+    la, lb, lc, lf = (r.host_losses() for r in (rec_a, rec_b, rec_c, rec_f))
+    def timing(rec) -> dict:
+        """Steps 11-30 (indices 10-29) of a 30-step run, from the event at
+        each forward's start to the next, and for step 30 to the event
+        after run_training returned: the window holds the step-20 and
+        step-30 checkpoints and the final writer drain."""
+        marks = rec.starts[10:30] + [rec.end]
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        span_s = marks[0].elapsed_time(marks[-1]) / 1e3
+        return {"images_per_s": BATCH * len(step_ms) / span_s,
+                "step_ms_median": statistics.median(step_ms),
+                "step_ms": step_ms,
+                "optimizer_ms_per_step": statistics.mean(
+                    a.elapsed_time(b) for a, b in rec.updates[10:30]),
+                "optimizer_host_ms_per_step": 1e3 * statistics.mean(
+                    rec.update_host[10:30])}
+
+    times = {"fused_sgd": timing(rec_a), "sgd": timing(rec_b)}
+    profile_out = _train_profile()
+    step_s = times["fused_sgd"]["step_ms_median"] / 1e3
+    # the profiled window is one fixed batch without the loader or the
+    # writer, and the profiler slows the host; the idle share of run (a) is
+    # read from its un-profiled median step against the profiled busy time
+    busy_ms = profile_out["device_busy_ms_per_step"]
+    out = {
+        "phase": "train", "card": smi,
+        "config": {"depth": DEPTH, "classes": CLASSES, "image": IMAGE,
+                   "batch": BATCH, "compute": "bf16", "params": "fp32",
+                   "cudnn_deterministic": True},
+        "losses": {"fused_sgd": la, "sgd": lb, "resumed_from_10": lc,
+                   "fixed_batch": lf},
+        "max_abs_loss_diff_fused_vs_sgd": max(abs(x - y)
+                                              for x, y in zip(la, lb)),
+        "max_abs_loss_diff_resumed": max(abs(x - y)
+                                         for x, y in zip(la[10:], lc)),
+        "launches": {"fused_sgd": launches_a, "sgd": launches_b,
+                     "resumed": launches_c},
+        "resume_steps": out_c.get("resume_steps"),
+        "timing_steps_11_30": times,
+        "wall_s": {"fused_sgd": wall_a, "sgd": wall_b},
+        "max_memory_allocated": peak,
+        "host_stages_fused_sgd": out_a["host_stages"],
+        "profile": profile_out,
+        "idle_share_unprofiled_fused_sgd": 1.0 - busy_ms / (1e3 * step_s),
+        "flops_per_s": profile_out["flops_per_step"] / step_s,
+        "bf16_peak_share": profile_out["flops_per_step"] / step_s
+        / BF16_FLOPS,
+    }
+    emit(out)
+    problems = []
+    if la[0] != lb[0]:
+        problems.append("first losses differ: %r vs %r" % (la[0], lb[0]))
+    if not out["max_abs_loss_diff_fused_vs_sgd"] <= TRAIN_TOL:
+        problems.append("fused_sgd and sgd losses differ by %g"
+                        % out["max_abs_loss_diff_fused_vs_sgd"])
+    if len(lc) != 20 or not out["max_abs_loss_diff_resumed"] <= TRAIN_TOL:
+        problems.append("the resumed run does not reproduce steps 11-30 "
+                        "(%d losses, off by %g)"
+                        % (len(lc), out["max_abs_loss_diff_resumed"]))
+    if out_c.get("resume_steps") != [10]:
+        problems.append("the resumed run restored %r, not step 10"
+                        % out_c.get("resume_steps"))
+    if (launches_a, launches_b, launches_c) != (30, 0, 20):
+        problems.append("fused_sgd launches %d/%d/%d, expected 30/0/20"
+                        % (launches_a, launches_b, launches_c))
+    if len(la) != 30 or len(lb) != 30 or out_a["steps"] != 30:
+        problems.append("runs did not take 30 steps")
+    if not all(np.isfinite(x) for x in la + lb + lc + lf):
+        problems.append("a loss is not finite")
+    if not lf[-1] < lf[0]:
+        problems.append("20 steps on one batch did not lower the loss "
+                        "(%g -> %g)" % (lf[0], lf[-1]))
+    if problems:
+        fail("train: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -357,7 +711,9 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(hbm_rate(env["device"]))
     serve = phase_serve(env["nvidia_smi"])
+    train = phase_train(env["nvidia_smi"])
     full = kernels["kernels"][0]["shapes"][-1]
+    sgd = kernels["kernels"][1]
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -366,7 +722,13 @@ def main() -> int:
                            for s in kernels["kernels"][0]["shapes"]),
         "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-        "library_ms": full["library_ms"]}]})
+        "library_ms": full["library_ms"]}, {
+        "name": "fused_sgd", "route": "cuda", "source": SGD_SOURCE,
+        "replaces": SGD_REPLACES,
+        "launches": train["launches"]["fused_sgd"],
+        "max_abs_err": sgd["max_abs_err"], "ms": sgd["kernel_ms"],
+        "plain_ms": sgd["plain_ms"], "bound_ms": sgd["bound_ms"],
+        "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,37 +1,92 @@
 """Parameter trees between the JAX package and the port, as numpy.
 
 The JAX package's parameter trees are nested dicts and lists of arrays
-(``paddle_operator_tpu.models.gpt.init``). :func:`params_from_numpy`
-turns such a tree, with its leaves as numpy arrays, into the same tree of
-torch tensors on a device; :func:`params_to_numpy` goes back. The keys
-and the layouts are kept as they are (the port's layers take the JAX
-layouts), so a round trip is bit-equal.
+(``paddle_operator_tpu.models.gpt.init``, ``models.resnet.init``).
+:func:`params_from_numpy` turns such a tree, with its leaves as numpy
+arrays, into the same tree of torch tensors on a device;
+:func:`params_to_numpy` goes back. The keys and the layouts are kept as
+they are (the port's layers take the JAX layouts: HWIO conv kernels,
+``[in, out]`` dense kernels, BatchNorm ``{scale, bias, mean, var}`` leaves
+inside the tree), so a round trip is bit-equal.
+
+:func:`flatten` names each leaf by its path, ``"stages/0/1/conv2/kernel"``,
+exactly as the JAX package's checkpoint writer does (sorted dict keys,
+list indices), so checkpoints cross between the two packages.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
+from .device import DeviceLike, resolve_device
 
-def params_from_numpy(tree: Any,
-                      device: Optional[Union[str, torch.device]] = None
-                      ) -> Any:
-    """Copy a dict/list tree of numpy arrays into torch tensors on
-    ``device`` (default CPU). Leaves keep their dtype and shape."""
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leaf by leaf over dict/list trees of the same shape.
+    ``None`` leaves of the first tree stay ``None``."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device) for v in tree)
-    return torch.tensor(np.asarray(tree), device=device)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def leaves(tree: Any) -> list:
+    """The leaves in :func:`flatten`'s order (sorted keys, list order)."""
+    return list(flatten(tree).values())
+
+
+def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """Copy a dict/list tree of numpy arrays into torch tensors on
+    ``device``. ``None`` means CUDA, and raises without a card. Leaves
+    keep their dtype and shape."""
+    dev = resolve_device(device, "bridge.params_from_numpy")
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:
     """Copy a dict/list tree of torch tensors back into numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """``{"a/0/b": leaf}``: the flat path names of the JAX package's
+    ``utils/checkpoint._flatten``."""
+    out: Dict[str, Any] = {}
     if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
+        for k in sorted(tree):
+            out.update(flatten(tree[k], "%s%s/" % (prefix, k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten(v, "%s%d/" % (prefix, i)))
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def structure(tree: Any) -> Any:
+    """The tree with every leaf replaced by ``None`` (tuples as lists),
+    as the checkpoint manifest stores it."""
+    if isinstance(tree, dict):
+        return {k: structure(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_to_numpy(v) for v in tree)
-    return tree.detach().cpu().numpy().copy()
+        return [structure(v) for v in tree]
+    return None
+
+
+def unflatten(struct: Any, flat: Dict[str, Any], prefix: str = "") -> Any:
+    """Inverse of :func:`flatten` given :func:`structure`'s output."""
+    if isinstance(struct, dict):
+        return {k: unflatten(v, flat, "%s%s/" % (prefix, k))
+                for k, v in struct.items()}
+    if isinstance(struct, list):
+        return [unflatten(v, flat, "%s%d/" % (prefix, i))
+                for i, v in enumerate(struct)]
+    return flat[prefix[:-1]]

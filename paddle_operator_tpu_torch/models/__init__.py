@@ -1,1 +1,1 @@
-"""Models of the port: :mod:`.gpt`."""
+"""Models of the port: :mod:`.gpt`, :mod:`.resnet`."""

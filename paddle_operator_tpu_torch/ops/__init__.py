@@ -1,1 +1,2 @@
-"""Layers (:mod:`.nn`) and kernels (:mod:`.attention`) of the port."""
+"""Layers (:mod:`.nn`), optimizers (:mod:`.optim`) and kernels
+(:mod:`.attention`, :func:`.optim.multi_tensor_sgd`) of the port."""

@@ -1,18 +1,26 @@
 """Core layers as (init, apply) function pairs over dict trees of tensors:
-the subset of ``paddle_operator_tpu/ops/nn.py`` that serving needs.
+the subset of ``paddle_operator_tpu/ops/nn.py`` that serving and ResNet
+training need.
 
 Layouts are the JAX package's, so a tree converted by :mod:`..bridge`
-runs here unchanged: dense kernels are ``[in, out]``; the mha q/k/v
-kernels are ``[dim, heads, head_dim]`` with bias ``[heads, head_dim]``
-and the output kernel is ``[heads, head_dim, dim]``; an embedding is
-``{"table": [vocab, dim]}``. Initializers draw from an explicit
-``torch.Generator`` and create tensors on that generator's device.
+runs here unchanged: dense kernels are ``[in, out]``; conv kernels are
+HWIO on NHWC activations; BatchNorm keeps ``{scale, bias, mean, var}``
+in the tree; the mha q/k/v kernels are ``[dim, heads, head_dim]`` with
+bias ``[heads, head_dim]`` and the output kernel is
+``[heads, head_dim, dim]``; an embedding is ``{"table": [vocab, dim]}``.
+Initializers draw from an explicit ``torch.Generator`` and create tensors
+on that generator's device.
+
+NHWC activations are contiguous; their ``[B, C, H, W]`` view is
+``channels_last`` in memory, which is what cuDNN's NHWC convolutions
+take, so :func:`conv2d` and :func:`max_pool` copy nothing to change
+layout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +50,152 @@ def normal_init(generator: torch.Generator, shape: Sequence[int],
 
 def _zeros(generator: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
     return torch.zeros(tuple(shape), device=generator.device)
+
+
+def kaiming_normal(generator: torch.Generator,
+                   shape: Sequence[int]) -> torch.Tensor:
+    """N(0, 2 / fan_in) in fp32; fan_in of an HWIO kernel is H*W*I, of a
+    2-D ``[in, out]`` kernel ``in``."""
+    fan_in = shape[0] if len(shape) == 2 else math.prod(shape[:-1])
+    out = torch.empty(tuple(shape), device=generator.device)
+    return out.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# conv2d (NHWC / HWIO), pooling
+# ---------------------------------------------------------------------------
+
+def conv_init(generator: torch.Generator, kh: int, kw: int, in_ch: int,
+              out_ch: int, init=kaiming_normal) -> Params:
+    return {"kernel": init(generator, (kh, kw, in_ch, out_ch))}
+
+
+def same_padding(size: int, window: int, stride: int) -> Tuple[int, int]:
+    """(before, after) of XLA's SAME padding along one axis: the output
+    has ``ceil(size / stride)`` positions and any odd pad goes after
+    (7x7/2 at 224: (2, 3); 3x3/2 on an even size: (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same_nhwc(x: torch.Tensor, window: int, stride: int,
+                   value: float = 0.0) -> Tuple[torch.Tensor, int, int]:
+    """Pad an NHWC tensor for a SAME window. Symmetric pads are returned
+    as (ph, pw) for the op's own padding argument; asymmetric ones are
+    applied here (the op then pads nothing)."""
+    ph = same_padding(x.shape[1], window, stride)
+    pw = same_padding(x.shape[2], window, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return x, ph[0], pw[0]
+    return F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]), value=value), 0, 0
+
+
+class _OihwKernel(torch.autograd.Function):
+    """An HWIO kernel as the OIHW ``channels_last`` tensor cuDNN's NHWC
+    convolutions read (memory order O, H, W, I), cast to the compute type
+    in the same copy. The backward writes the grad back as a contiguous
+    HWIO tensor of the kernel's type, also in one copy: a plain
+    permute-and-cast would hand the optimizer a strided view."""
+
+    @staticmethod
+    def forward(ctx, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        ctx.w_dtype = w.dtype
+        oihw = w.permute(3, 2, 0, 1)
+        out = torch.empty(oihw.shape, dtype=dtype, device=w.device,
+                          memory_format=torch.channels_last)
+        return out.copy_(oihw)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        hwio = grad.permute(2, 3, 1, 0)
+        out = torch.empty(hwio.shape, dtype=ctx.w_dtype, device=grad.device)
+        return out.copy_(hwio), None
+
+
+def conv2d(params: Params, x: torch.Tensor, stride: int = 1,
+           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """SAME convolution of NHWC ``x`` with an HWIO kernel, in ``dtype``;
+    returns NHWC. The kernel's grad comes back contiguous HWIO."""
+    w = params["kernel"]
+    x, ph, pw = _pad_same_nhwc(x.to(dtype), w.shape[0], stride)
+    w = _OihwKernel.apply(w, dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=(ph, pw))
+    return y.permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """SAME max pool over NHWC ``x``; the padding is -inf, so a padded
+    position never wins."""
+    x, ph, pw = _pad_same_nhwc(x, window, stride, value=float("-inf"))
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding=(ph, pw))
+    return y.permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over H and W of NHWC ``x``, in fp32."""
+    return x.float().mean(dim=(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# batchnorm
+# ---------------------------------------------------------------------------
+
+def batchnorm_init(ch: int, device: Optional[torch.device] = None
+                   ) -> Params:
+    return {"scale": torch.ones((ch,), device=device),
+            "bias": torch.zeros((ch,), device=device),
+            # running stats live beside params, updated out of band
+            "mean": torch.zeros((ch,), device=device),
+            "var": torch.ones((ch,), device=device)}
+
+
+def batchnorm(params: Params, x: torch.Tensor, train: bool,
+              momentum: float = 0.9, eps: float = 1e-5,
+              dtype: torch.dtype = torch.bfloat16
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """BatchNorm over every axis but the last (channels), the JAX
+    package's formula: in train mode the biased variance is taken in one
+    pass around the running mean ``c`` (detached), clamped at 0, and the
+    new running stats (momentum on the OLD value) are returned, detached,
+    never written here. Returns ``(y, new_stats)``; ``new_stats`` is None
+    in eval mode. ``nn.BatchNorm2d`` differs (unbiased running variance,
+    buffers updated inside forward), so the formula is written out."""
+    xf = x.float()
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        c = params["mean"].float().detach()
+        d = xf - c
+        dmean = d.mean(dim=axes)
+        var = torch.clamp(torch.square(d).mean(dim=axes)
+                          - torch.square(dmean), min=0.0)
+        mean = dmean + c
+        with torch.no_grad():
+            new_stats = {
+                "mean": momentum * params["mean"] + (1 - momentum) * mean,
+                "var": momentum * params["var"] + (1 - momentum) * var,
+            }
+    else:
+        mean, var = params["mean"], params["var"]
+        new_stats = None
+    inv = torch.rsqrt(var + eps) * params["scale"]
+    y = (xf - mean) * inv + params["bias"]
+    return y.to(dtype), new_stats
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the batch, in fp32; labels are int ids."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[:, None]).mean()
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(dim=-1) == labels).float().mean()
 
 
 # ---------------------------------------------------------------------------

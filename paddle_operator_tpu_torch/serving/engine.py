@@ -33,23 +33,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import nn
 from ..ops.attention import _reference_paged_decode, paged_decode_attention
 from .batching import Request
 from .kv_cache import KvCacheFull, PagedKvCache
 
 F32 = torch.float32
-
-
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``None`` means CUDA; asking for CUDA without it raises rather than
-    carrying on on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "ServingEngine runs on CUDA unless given device='cpu', and "
-            "torch.cuda.is_available() is False")
-    return dev
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -112,7 +102,7 @@ class ServingEngine:
             raise ValueError("attn must be paged|reference, got %r" % attn)
         if config.get("moe_experts"):
             raise ValueError("ServingEngine does not serve MoE configs")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "ServingEngine")
         heads = config["heads"]
         head_dim = config["hidden"] // heads
         self.params = _to_device(params, self.device)

@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
+from ..device import resolve_device
+
 
 class KvCacheFull(Exception):
     """No free block — the admission layer must shed, not crash."""
@@ -217,7 +219,7 @@ class KvBlockAllocator:
 class PagedKvCache:
     """The tensor half: per-layer K/V pages shaped
     ``[num_blocks + 1, block_size, heads, head_dim]`` on ``device``, plus
-    an allocator.
+    an allocator. ``device=None`` means CUDA, and raises without a card.
 
     Writes are IN PLACE (``index_put_`` into the page tensors), unlike the
     JAX package's functional ``.at[].set()``: the page tensors keep their
@@ -231,7 +233,7 @@ class PagedKvCache:
                  device: Union[str, torch.device, None] = None) -> None:
         self.allocator = KvBlockAllocator(num_blocks, block_size)
         self.layers = layers
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device, "PagedKvCache")
         # +1: the LAST page is the decode batch's dummy-row target. The
         # engine pads its batch to a fixed shape; pad rows must scatter
         # their (inert) k/v SOMEWHERE, and it must be a page no live

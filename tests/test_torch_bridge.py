@@ -39,12 +39,22 @@ def jax_tree():
 
 
 def test_bridge_round_trip_is_bit_equal(jax_tree):
-    back = bridge.params_to_numpy(bridge.params_from_numpy(jax_tree))
+    back = bridge.params_to_numpy(
+        bridge.params_from_numpy(jax_tree, device="cpu"))
     want, got = list(_leaves(jax_tree)), list(_leaves(back))
     assert [p for p, _ in got] == [p for p, _ in want]
     for (path, a), (_, b) in zip(want, got):
         assert a.dtype == b.dtype and a.shape == b.shape, path
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), path
+
+
+def test_params_from_numpy_without_device_needs_cuda(jax_tree,
+                                                    monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.params_from_numpy(jax_tree)
+    with pytest.raises(RuntimeError):
+        bridge.params_from_numpy(jax_tree, device="cuda")
 
 
 def test_port_init_has_the_jax_tree_keys_and_shapes(jax_tree):
@@ -73,14 +83,14 @@ def _layer_case(name):
         p = {"scale": rng.standard_normal(24, dtype=np.float32),
              "bias": rng.standard_normal(24, dtype=np.float32)}
         return (jnn.layernorm(p, flat * 3 + 1, dtype=f32),
-                tnn.layernorm(bridge.params_from_numpy(p),
+                tnn.layernorm(bridge.params_from_numpy(p, device="cpu"),
                               torch.from_numpy(flat * 3 + 1), dtype=t32))
     if name == "dense":
         p = {"kernel": rng.standard_normal((24, 12), dtype=np.float32),
              "bias": rng.standard_normal(12, dtype=np.float32)}
         return (jnn.dense(p, flat, dtype=f32),
-                tnn.dense(bridge.params_from_numpy(p), torch.from_numpy(flat),
-                          dtype=t32))
+                tnn.dense(bridge.params_from_numpy(p, device="cpu"),
+                          torch.from_numpy(flat), dtype=t32))
     if name == "gelu":
         return jnn.gelu(flat * 4), tnn.gelu(torch.from_numpy(flat * 4))
     if name == "rope":
@@ -99,8 +109,9 @@ def _layer_case(name):
         jp = jnn.mha_init(jax.random.PRNGKey(1), 24, 4)
         jp = jax.tree_util.tree_map(np.asarray, jp)
         return (jnn.mha(jp, flat, dtype=f32, causal=True, use_rope=True),
-                tnn.mha(bridge.params_from_numpy(jp), torch.from_numpy(flat),
-                        dtype=t32, causal=True, use_rope=True))
+                tnn.mha(bridge.params_from_numpy(jp, device="cpu"),
+                        torch.from_numpy(flat), dtype=t32, causal=True,
+                        use_rope=True))
     raise ValueError(name)
 
 
@@ -124,6 +135,6 @@ def test_port_gpt_forward_matches_jax(jax_tree):
     want, _ = gpt.apply(jax.tree_util.tree_map(jnp.asarray, jax_tree),
                         jnp.asarray(ids, jnp.int32), dtype=jnp.float32,
                         attn_impl="einsum")
-    got = tgpt.apply(bridge.params_from_numpy(jax_tree),
+    got = tgpt.apply(bridge.params_from_numpy(jax_tree, device="cpu"),
                      torch.from_numpy(ids))
     assert np.max(np.abs(got.numpy() - np.asarray(want))) < 1e-4

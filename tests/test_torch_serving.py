@@ -90,7 +90,7 @@ def test_allocator_rejects_bad_allocations(call):
 
 def test_paged_cache_writes_in_place_at_table_slots():
     c = PagedKvCache(num_blocks=6, block_size=4, layers=2, heads=2,
-                     head_dim=8)
+                     head_dim=8, device="cpu")
     assert c.dummy_page == 6 and c.k_pages[0].shape == (7, 4, 2, 8)
     storage = c.k_pages[1].data_ptr()
     c.allocator.alloc_sequence("s", 6)
@@ -103,6 +103,13 @@ def test_paged_cache_writes_in_place_at_table_slots():
     assert torch.equal(c.v_pages[1][table[1], :2], -k[4:])
     assert c.k_pages[0].abs().sum() == 0        # other layers untouched
     assert c.k_pages[1][c.dummy_page].abs().sum() == 0
+
+
+def test_paged_cache_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        PagedKvCache(num_blocks=6, block_size=4, layers=2, heads=2,
+                     head_dim=8)
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +382,7 @@ def jax_golden():
 @pytest.mark.parametrize("attn", ["paged", "reference"])
 def test_engine_streams_match_jax_engine_and_full_forward(jax_golden, attn):
     assert jax_golden["jax_streams"] == jax_golden["golden"]
-    params = bridge.params_from_numpy(jax_golden["tree"])
+    params = bridge.params_from_numpy(jax_golden["tree"], device="cpu")
     before = attention.paged_decode_attention.launches
     got = _serve(ServingEngine, params, tgpt.TINY_CONFIG, attn,
                  device="cpu")
@@ -385,7 +392,8 @@ def test_engine_streams_match_jax_engine_and_full_forward(jax_golden, attn):
 
 
 def test_engine_prefill_logits_match_jax(jax_golden):
-    eng = ServingEngine(bridge.params_from_numpy(jax_golden["tree"]),
+    eng = ServingEngine(bridge.params_from_numpy(jax_golden["tree"],
+                                                 device="cpu"),
                         tgpt.TINY_CONFIG, prompt_pad=16, device="cpu")
     for prompt, want in zip(PROMPTS, jax_golden["prefill_logits"]):
         ids = torch.zeros((1, 16), dtype=torch.long)
