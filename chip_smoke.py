@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives both ported paths:
+path. Then it drives the three ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -15,7 +15,14 @@ path. Then it drives both ported paths:
   fp32 master params) through ``TrainJob`` + ``run_training``, 30 steps
   with ``fused_sgd`` (the multi-tensor kernel), the same 30 with ``sgd``,
   and a resume of the first run from its step-10 checkpoint; the losses
-  must agree as stated in ``phase_train``.
+  must agree as stated in ``phase_train``;
+* train_gpt: GPT-2 small (batch 16 x 1024 tokens, bf16 on fp32 params,
+  adamw, remat, chunked LM head) through the job of
+  ``examples/train_gpt.py``: step 0's gradients on the kernels against
+  the einsum attention, 20 steps on the flash-attention kernels, the same
+  20 on the einsum attention, a resume from the step-10 checkpoint, and
+  the 20 steps again under planted backward faults that the gates must
+  see; gates in ``phase_train_gpt``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -24,6 +31,8 @@ non-zero without that last line. Without CUDA it exits 2.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -36,7 +45,8 @@ import time
 import numpy as np
 import torch
 
-from paddle_operator_tpu_torch import bridge
+from paddle_operator_tpu_torch import bridge, testing
+from paddle_operator_tpu_torch.examples import train_gpt
 from paddle_operator_tpu_torch.models import gpt, resnet
 from paddle_operator_tpu_torch.ops import _kernels, attention, optim
 from paddle_operator_tpu_torch.parallel import build_train_step
@@ -55,11 +65,27 @@ PAGED_REPLACES = "paddle_operator_tpu/ops/attention_pallas.py:525"
 PAGED_SOURCE = "paddle_operator_tpu_torch/csrc/paged_decode.cu"
 SGD_REPLACES = "paddle_operator_tpu/ops/optim.py:283"
 SGD_SOURCE = "paddle_operator_tpu_torch/csrc/fused_sgd.cu"
+FLASH_SOURCE = "paddle_operator_tpu_torch/csrc/flash_attention.cu"
+#: the three flash kernels: (kernels-line name, key of
+#: attention.flash_attention.launches, the TPU kernel it replaces)
+FLASH_KERNELS = (
+    ("flash_fwd", "fwd", "paddle_operator_tpu/ops/attention_pallas.py:47"),
+    ("flash_dq", "dq", "paddle_operator_tpu/ops/attention_pallas.py:100"),
+    ("flash_dkv", "dkv", "paddle_operator_tpu/ops/attention_pallas.py:152"))
+#: fp32 flash kernels against their plain versions, absolute: the JAX
+#: package's kernel-vs-reference bound (tests/test_pallas_attention.py)
+FLASH_TOL_F32 = 2e-5
+#: bf16 outputs are held element by element to one bf16 ulp of the plain
+#: value plus testing.BF16_ATOL: both sides sum in fp32 and round once
+FLASH_TOL_BF16 = "1 bf16 ulp of plain + %g" % testing.BF16_ATOL
 #: bf16 dense tensor-core FLOP/s (H100 SXM data sheet)
 BF16_FLOPS = 989e12
 DEVICE = "cuda"
 #: the train phase's model and batch: ResNet-50 at full width
 DEPTH, CLASSES, IMAGE, BATCH = 50, 1000, 224, 128
+#: the train_gpt phase: GPT-2 small, examples/train_gpt.py's batch and
+#: sequence, 20 steps (the example's default is 100)
+GPT_BATCH, GPT_SEQ, GPT_STEPS = 16, 1024, 20
 
 
 def emit(obj) -> None:
@@ -275,12 +301,199 @@ def _sgd_measure(rate: float) -> dict:
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
 
 
+def _flash_inputs(b, h, s, d, dtype, seed=0):
+    """q, k, v and an output cotangent [B, H, S, D] drawn on the card from
+    a seed, fp32 normals cast to ``dtype``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn((b, h, s, d), generator=gen, device=DEVICE).to(dtype)
+            for _ in range(4)]
+
+
+def _flash_compare(q, k, v, g, causal):
+    """Each kernel and its plain version on the same inputs: the forward
+    on q, k, v; dQ and dK/dV both on the plain forward's O and LSE (and
+    its delta), so each backward kernel sees its plain version's
+    operands. Returns (kernel outputs, plain outputs, backward args)."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = attention._launch_fwd(q, k, v, scale, causal)
+    w_out, w_lse = attention._plain_flash_fwd(q, k, v, scale, causal)
+    delta = torch.sum(g.float() * w_out.float(), dim=-1)
+    args = (q, k, v, g, w_lse, delta, scale, causal)
+    dk, dv = attention._launch_dkv(*args)
+    w_dk, w_dv = attention._plain_flash_dkv(*args)
+    got = {"o": out, "lse": lse, "dq": attention._launch_dq(*args),
+           "dk": dk, "dv": dv}
+    want = {"o": w_out, "lse": w_lse,
+            "dq": attention._plain_flash_dq(*args), "dk": w_dk, "dv": w_dv}
+    return got, want, args
+
+
+def _flash_errors(got, want) -> dict:
+    """Per output, max |kernel - plain| and ``worst``, the largest error
+    over its bound (at most 1 passes): FLASH_TOL_F32 for fp32 outputs, one
+    bf16 ulp of the plain value plus testing.BF16_ATOL for bf16 ones."""
+    out = {}
+    for name, w in want.items():
+        if w.dtype == torch.bfloat16:
+            out[name] = testing.bf16_errors(got[name], w)
+        else:
+            err = torch.max(torch.abs(got[name] - w)).item()
+            out[name] = {"max_abs_err": err, "worst": err / FLASH_TOL_F32}
+    return out
+
+
+def _flash_planted(q, k, v, g, got, want) -> dict:
+    """The bf16 rule on two planted faults at the path's shape, each of
+    which it must reject in every output: the causal mask reaching one key
+    past the diagonal (materialised in fp32), and the kernels' outputs
+    with one 64-row tile scaled by 1 + 2^-6."""
+    shifted = testing.causal_attention_autograd(q, k, v, g,
+                                                q.shape[-1] ** -0.5, edge=1)
+    return {"causal_edge_off_by_one": {
+                n: testing.bf16_errors(x, want[n]) for n, x in shifted.items()},
+            "misscaled_tile": {
+                n: testing.bf16_errors(testing.misscaled_tile(got[n]),
+                                       want[n]) for n in shifted}}
+
+
+def _flash_lse_entry(q, k, v, g, causal) -> dict:
+    """flash_attention_lse through autograd on the card, with a nonzero
+    LSE cotangent, against the plain forward and backward (delta less the
+    LSE cotangent)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    g_lse = torch.randn(q.shape[:3], generator=gen, device=DEVICE)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, lse = attention.flash_attention_lse(*leaves, causal=causal)
+    grads = torch.autograd.grad((out, lse), leaves, (g, g_lse))
+    scale = q.shape[-1] ** -0.5
+    w_out, w_lse = attention._plain_flash_fwd(q, k, v, scale, causal)
+    delta = torch.sum(g.float() * w_out.float(), dim=-1) - g_lse
+    args = (q, k, v, g, w_lse, delta, scale, causal)
+    w_dk, w_dv = attention._plain_flash_dkv(*args)
+    got = dict(zip(("o", "lse", "dq", "dk", "dv"), (out, lse, *grads)))
+    want = {"o": w_out, "lse": w_lse,
+            "dq": attention._plain_flash_dq(*args), "dk": w_dk, "dv": w_dv}
+    return _flash_errors(got, want)
+
+
+def flash_bound(kind: str, shape, dtype, causal: bool, rate: float):
+    """The least time of one flash kernel call, in ms, and what sets it:
+    the products it must do (2 for the forward, 3 for dQ, 4 for dK/dV,
+    each 2*D flops per live (q, k) pair, S(S+1)/2 pairs per head when
+    causal) over the peak of the inputs' type, against the bytes it must
+    move (each input read once, each output written once: q, k, v, O |
+    q, k, v, dO, dQ | q, k, v, dO, dK, dV, plus the fp32 LSE and delta
+    rows) over HBM."""
+    b, h, s, d = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    products, tensors, rows = {"fwd": (2, 4, 1), "dq": (3, 5, 2),
+                               "dkv": (4, 6, 2)}[kind]
+    flops = products * 2 * d * b * h * pairs
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = tensors * b * h * s * d * elt + rows * b * h * s * 4
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    bytes_ms, flops_ms = 1e3 * nbytes / rate, 1e3 * flops / peak
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", flops, nbytes)
+
+
+def _flash_measure(rate: float) -> dict:
+    """Kernels B2a/B2b/B2c against their plain versions: fp32 at B=2, H=4,
+    S=512, D in {64, 128}, causal and not; the LSE entry point through
+    autograd; bf16 at the training path's shape (16 x 12 x 1024 x 64,
+    causal), where the kernels are timed beside their plain versions and
+    PyTorch's ``scaled_dot_product_attention`` (forward; backward = forward
+    and backward less forward, the yardstick of dQ and dK/dV together)."""
+    small = []
+    for d in (64, 128):
+        for causal in (False, True):
+            q, k, v, g = _flash_inputs(2, 4, 512, d, torch.float32, seed=d)
+            got, want, _ = _flash_compare(q, k, v, g, causal)
+            small.append({"shape": [2, 4, 512, d], "causal": causal,
+                          "errors": _flash_errors(got, want)})
+    q, k, v, g = _flash_inputs(2, 4, 512, 64, torch.float32, seed=3)
+    lse_entry = {"shape": [2, 4, 512, 64], "causal": True,
+                 "errors": _flash_lse_entry(q, k, v, g, True)}
+
+    shape = (GPT_BATCH, gpt.BASE_CONFIG["heads"], GPT_SEQ,
+             gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"])
+    q, k, v, g = _flash_inputs(*shape, torch.bfloat16, seed=11)
+    got, want, args = _flash_compare(q, k, v, g, True)
+    path_errors = _flash_errors(got, want)
+    planted = _flash_planted(q, k, v, g, got, want)
+    del got, want
+    scale = shape[-1] ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def lib_fwd_bwd():
+        out = sdpa(*leaves, is_causal=True)
+        torch.autograd.grad(out, leaves, g)
+
+    lib_err = torch.max(torch.abs(
+        sdpa(q, k, v, is_causal=True).float()
+        - attention._plain_flash_fwd(q, k, v, scale, True)[0].float())).item()
+    calls = {
+        "fwd": (lambda: attention._launch_fwd(q, k, v, scale, True),
+                lambda: attention._plain_flash_fwd(q, k, v, scale, True)),
+        "dq": (lambda: attention._launch_dq(*args),
+               lambda: attention._plain_flash_dq(*args)),
+        "dkv": (lambda: attention._launch_dkv(*args),
+                lambda: attention._plain_flash_dkv(*args))}
+    lib_fwd_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True))
+    lib_bwd_ms = device_ms(lib_fwd_bwd) - lib_fwd_ms
+    rows = {}
+    for kind, (kernel, plain) in calls.items():
+        bound, by, flops, nbytes = flash_bound(kind, shape, torch.bfloat16,
+                                               True, rate)
+        ms = device_ms(kernel)
+        rows[kind] = {"kernel_ms": ms, "plain_ms": device_ms(plain, reps=5),
+                      "library_ms": lib_fwd_ms if kind == "fwd"
+                      else lib_bwd_ms,
+                      "bound_ms": bound, "bound_by": by, "flops": flops,
+                      "bytes": nbytes, "tflop_per_s": flops / ms / 1e9}
+    return {"small_fp32": small, "lse_entry": lse_entry,
+            "path": {"shape": list(shape), "dtype": "bf16", "causal": True,
+                     "errors": path_errors, "planted_faults": planted,
+                     "library_fwd_max_abs_err": lib_err},
+            "timing": rows,
+            "library": "scaled_dot_product_attention(is_causal=True); the "
+                       "dq and dkv rows both carry its backward (dQ, dK and "
+                       "dV together)"}
+
+
+def _flash_failures(flash: dict) -> list:
+    problems = []
+    cases = flash["small_fp32"] + [flash["lse_entry"], flash["path"]]
+    for case in cases:
+        for name, e in case["errors"].items():
+            if not e["worst"] <= 1.0:
+                problems.append("flash %s off by %g, %g times its bound, at "
+                                "%r causal=%s" % (name, e["max_abs_err"],
+                                                  e["worst"], case["shape"],
+                                                  case["causal"]))
+    for fault, errors in flash["path"]["planted_faults"].items():
+        for name, e in errors.items():
+            if not e["worst"] > 1.0:
+                problems.append("the bf16 rule passes planted fault %s in %s"
+                                % (fault, name))
+    return problems
+
+
 def phase_kernels(rate: float) -> dict:
     attention.paged_decode_attention.launches = 0
     shapes = [_paged_measure(n, rate) for n in ("ragged", "full_width")]
     optim.multi_tensor_sgd.launches = 0
     sgd = _sgd_measure(rate)
-    out = {"phase": "kernels", "kernels": [{
+    attention.flash_attention.launches = dict.fromkeys(
+        attention.flash_attention.launches, 0)
+    flash = _flash_measure(rate)
+    out = {"phase": "kernels", "flash": dict(
+        flash, replaces={n: r for n, _, r in FLASH_KERNELS},
+        source=FLASH_SOURCE, tolerance={"fp32": FLASH_TOL_F32,
+                                        "bf16": FLASH_TOL_BF16},
+        comparison_launches=dict(attention.flash_attention.launches)),
+        "kernels": [{
         "name": "paged_decode_attention", "replaces": PAGED_REPLACES,
         "source": PAGED_SOURCE, "tolerance": KERNEL_TOL,
         "comparison_launches": attention.paged_decode_attention.launches,
@@ -298,6 +511,9 @@ def phase_kernels(rate: float) -> dict:
     if not sgd["max_abs_err"] <= 0.0:
         fail("fused SGD kernel off by %g from its plain version (stated "
              "tolerance: bitwise)" % sgd["max_abs_err"])
+    problems = _flash_failures(flash)
+    if problems:
+        fail("kernels: " + "; ".join(problems))
     return out
 
 
@@ -422,7 +638,8 @@ def _full_forward_agreement(params, traffic, streams) -> tuple:
     agree = total = 0
     for (prompt, _), stream in zip(traffic, streams):
         ids = torch.tensor([list(prompt) + stream], device=DEVICE)
-        logits = gpt.apply(params, ids)
+        logits = gpt.apply(params, ids, dtype=torch.float32,
+                           attn_impl="einsum")
         n = len(prompt)
         pred = logits[0, n - 1:n - 1 + len(stream)].argmax(-1).tolist()
         agree += sum(int(a == b) for a, b in zip(pred, stream))
@@ -503,7 +720,8 @@ class _StepRecorder:
     step's loss on the device (read once, at the end), an event at each
     forward's start, and events and host time around each update."""
 
-    def __init__(self) -> None:
+    def __init__(self, loss=resnet.loss_fn) -> None:
+        self.loss = loss
         self.losses, self.starts, self.updates, self.update_host = \
             [], [], [], []
         self.end = None
@@ -512,7 +730,7 @@ class _StepRecorder:
         ev = _event()
         ev.record()
         self.starts.append(ev)
-        loss, aux = resnet.loss_fn(params, batch)
+        loss, aux = self.loss(params, batch)
         self.losses.append(loss.detach())
         return loss, aux
 
@@ -698,11 +916,346 @@ def phase_train(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_gpt: GPT-2 small through examples/train_gpt.py's job
+# ---------------------------------------------------------------------------
+
+#: |loss(flash kernels) - loss(einsum)| / loss allowed at every step of the
+#: 20: the einsum path rounds its scores and P to bf16 and the kernels do
+#: not. On an H100 the two runs parted by at most 3.8e-6 relative over the
+#: 20 steps, dk_unscaled by 1.4e-4 and dq_tile_shifted by only 1.7e-5
+GPT_EINSUM_RTOL = 2e-5
+#: step 0's gradients, kernels against einsum attention: the largest
+#: ||g - g_einsum|| / ||g_einsum|| over the parameter leaves. On an H100:
+#: 0.021 sound, 38 with dk_unscaled, 1.4 with dq_tile_shifted
+GPT_GRAD_RTOL = 0.05
+#: planted backward faults, made on the kernels' own outputs, that the
+#: gradient gate must reject: dK without its softmax scale, and dQ moved
+#: by one 64-row tile along the sequence (a tile index off by one)
+PLANTED_BACKWARD = ("dk_unscaled", "dq_tile_shifted")
+#: the planted faults that the loss gate must reject too: the 20 losses
+#: barely depend on dQ, so a shifted dQ tile stays near the gate
+LOSS_GATE_SEES = ("dk_unscaled",)
+
+
+@contextlib.contextmanager
+def _planted_backward(fault: str):
+    """While open, the dQ or the dK/dV launch returns ``fault``."""
+    launch_dq, launch_dkv = attention._launch_dq, attention._launch_dkv
+
+    def dkv_unscaled(q, k, v, dout, lse, delta, scale, causal):
+        dk, dv = launch_dkv(q, k, v, dout, lse, delta, scale, causal)
+        return dk / scale, dv
+
+    def dq_tile_shifted(*args):
+        return torch.roll(launch_dq(*args), 64, dims=2)
+
+    if fault == "dk_unscaled":
+        attention._launch_dkv = dkv_unscaled
+    elif fault == "dq_tile_shifted":
+        attention._launch_dq = dq_tile_shifted
+    else:
+        raise ValueError("no planted fault %r" % fault)
+    try:
+        yield
+    finally:
+        attention._launch_dq, attention._launch_dkv = launch_dq, launch_dkv
+
+
+def _gpt_env(steps: int = GPT_STEPS) -> dict:
+    return {"TPUJOB_BATCH": str(GPT_BATCH), "TPUJOB_SEQ": str(GPT_SEQ),
+            "TPUJOB_STEPS": str(steps)}
+
+
+def _gpt_run(attn_impl: str, ckpt_dir: str, make_batch=None):
+    """examples/train_gpt.py's TrainJob for GPT_STEPS steps, its loss and
+    optimizer wrapped by a _StepRecorder, checkpoints every 10 steps."""
+    job = train_gpt.make_job(_gpt_env(), attn_impl=attn_impl)
+    rec = _StepRecorder(job.loss_fn)
+    job = dataclasses.replace(
+        job, loss_fn=rec.loss_fn, optimizer=rec.wrap(job.optimizer),
+        make_batch=make_batch or job.make_batch, log_every=10,
+        checkpoint_every=10, checkpoint_dir=ckpt_dir, seed=0, device=DEVICE)
+    launches = attention.flash_attention.launches
+    for key in launches:
+        launches[key] = 0
+    t0 = time.perf_counter()
+    out = run_training(job)
+    rec.end = _event()
+    rec.end.record()
+    torch.cuda.synchronize()
+    out.pop("state", None)   # free the run's params and optimizer state
+    return rec, out, time.perf_counter() - t0, dict(launches)
+
+
+def _attention_flops(cfg: dict) -> int:
+    """Model FLOPs of causal attention per step, by hand (FlopCounterMode
+    does not see the kernels): per layer, the forward's two products of
+    2*D flops per live (q, k) pair, times 3 for the backward."""
+    d = cfg["hidden"] // cfg["heads"]
+    pairs = GPT_SEQ * (GPT_SEQ + 1) // 2
+    return 3 * cfg["layers"] * 2 * 2 * d * GPT_BATCH * cfg["heads"] * pairs
+
+
+def _gpt_grad_check() -> dict:
+    """Step 0's gradients of the example's loss (remat, chunked head) on
+    its first batch: the kernels' against the einsum attention's, as the
+    largest ||g - g_einsum|| / ||g_einsum|| over the parameter leaves;
+    then the same with each planted backward fault."""
+    job = train_gpt.make_job(_gpt_env())
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = job.init_params(gen)
+    batch = job.make_batch(gen, 0)
+    leaves = bridge.flatten(params)
+    for t in leaves.values():
+        t.requires_grad_()
+
+    def grads(attn_impl: str) -> dict:
+        loss, _ = train_gpt.make_job(_gpt_env(), attn_impl).loss_fn(params,
+                                                                    batch)
+        return dict(zip(leaves, torch.autograd.grad(loss,
+                                                    list(leaves.values()))))
+
+    ref = grads("einsum")
+
+    def reading(got: dict) -> dict:
+        rel = {n: (torch.linalg.vector_norm(g - ref[n])
+                   / torch.linalg.vector_norm(ref[n])).item()
+               for n, g in got.items()}
+        worst = max(rel, key=rel.get)
+        return {"max_rel_diff": rel[worst], "leaf": worst}
+
+    out = {"sound": reading(grads("auto"))}
+    for fault in PLANTED_BACKWARD:
+        with _planted_backward(fault):
+            out[fault] = reading(grads("auto"))
+    return out
+
+
+def _gpt_profile(warm: int = 2, steps: int = 3) -> dict:
+    """torch.profiler over ``steps`` train steps of the example's loss and
+    optimizer on one fixed batch: device busy time and the three flash
+    kernels' device time per step. Model FLOPs from FlopCounterMode over
+    one forward and backward without recompute (remat off, dense head),
+    plus the attention FLOPs by hand."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    job = train_gpt.make_job(_gpt_env())
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = job.init_params(gen)
+    batch = job.make_batch(gen, 0)
+    leaves = bridge.flatten(params)
+    for t in leaves.values():
+        t.requires_grad_()
+    with FlopCounterMode(display=False) as counter:
+        loss, _ = gpt.loss_fn(params, batch, remat=False, attn_impl="auto",
+                              ce_chunk=0)
+        torch.autograd.grad(loss, list(leaves.values()))
+    del loss, leaves
+    step_fn, state = build_train_step(job.loss_fn, job.optimizer,
+                                      params, batch, grad_clip=job.grad_clip)
+    del params
+    for _ in range(warm):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    by_kernel = dict.fromkeys(("flash_fwd_kernel", "flash_dq_kernel",
+                               "flash_dkv_kernel"), 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in by_kernel:
+                if name in e.name:
+                    by_kernel[name] += (e.time_range.end
+                                        - e.time_range.start) / 1e3 / steps
+    out = _profile_summary(prof, steps, "step")
+    out.update(profiled_wall_ms_per_step=1e3 * wall / steps,
+               flash_kernel_ms_per_step=by_kernel,
+               counted_flops_per_step=counter.get_total_flops())
+    return out
+
+
+def phase_train_gpt(smi: str) -> dict:
+    """GPT-2 small (BASE_CONFIG), batch 16 x 1024, bf16 on fp32 params,
+    adamw + cosine(3e-4), wd 0.1, grad clip 1.0, remat, ce_chunk 1024,
+    synthetic batches drawn on the card from (seed, step), through
+    examples/train_gpt.py's TrainJob and run_training. First step 0's
+    gradients, kernels against einsum, sound and under each planted
+    backward fault; then
+    (a) 20 steps with attn_impl="auto" (the flash kernels), checkpoints
+        every 10 steps;
+    (b) the same 20 steps with attn_impl="einsum";
+    (c) (a) resumed from its step-10 checkpoint;
+    (d) (a) under each planted backward fault, without checkpoints;
+    then 20 steps on one fixed batch and a profiled window. Deterministic
+    algorithms are on throughout (the embedding's index backward is
+    atomic otherwise), so (c) must reproduce (a) bit for bit."""
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    cfg = dict(gpt.BASE_CONFIG)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gpt_")
+    try:
+        dirs = {k: os.path.join(tmp, k) for k in "abc"}
+        grad_check = _gpt_grad_check()
+        torch.cuda.reset_peak_memory_stats()
+        rec_a, out_a, wall_a, launches_a = _gpt_run("auto", dirs["a"])
+        peak = torch.cuda.max_memory_allocated()
+        # (b) checkpoints too: the background writer slows the steps after
+        # a save, so both runs carry it and their steps compare like for
+        # like
+        rec_b, out_b, wall_b, launches_b = _gpt_run("einsum", dirs["b"])
+        os.makedirs(dirs["c"])
+        shutil.copytree(os.path.join(dirs["a"], "step_%012d" % 10),
+                        os.path.join(dirs["c"], "step_%012d" % 10))
+        rec_c, out_c, _, launches_c = _gpt_run("auto", dirs["c"])
+        planted_losses = {}
+        for fault in PLANTED_BACKWARD:
+            with _planted_backward(fault):
+                planted_losses[fault] = _gpt_run("auto", "")[0].host_losses()
+        fixed = gpt.synthetic_batch(
+            torch.Generator(device=DEVICE).manual_seed(1), GPT_BATCH,
+            GPT_SEQ, cfg["vocab_size"])
+        rec_f, _, _, _ = _gpt_run("auto", "",
+                                  make_batch=lambda gen, step: fixed)
+        profile_out = _gpt_profile()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(det[0])
+        torch.utils.deterministic.fill_uninitialized_memory = det[1]
+    la, lb, lc, lf = (r.host_losses() for r in (rec_a, rec_b, rec_c, rec_f))
+    tokens = GPT_BATCH * GPT_SEQ
+    # steps 11-20: from step 11's forward to the end of step 20's update
+    # (the step-20 checkpoint and the writer drain are outside the window)
+    def steps_11_20(rec) -> list:
+        marks = rec.starts[10:20] + [rec.updates[19][1]]
+        return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+    def steps_2_9(rec) -> float:
+        """Median of steps 2-9, forward to forward: after the first step's
+        warm-up and before the step-10 checkpoint, so no background
+        writer shares the host."""
+        return statistics.median(a.elapsed_time(b) for a, b in
+                                 zip(rec.starts[1:9], rec.starts[2:10]))
+
+    def max_rel(losses) -> float:
+        """The largest |loss - einsum loss| / einsum loss over the steps."""
+        return max(abs(x - y) / abs(y) for x, y in zip(losses, lb))
+
+    step_ms, einsum_ms = steps_11_20(rec_a), steps_11_20(rec_b)
+    span_s = sum(step_ms) / 1e3
+    median_s = statistics.median(step_ms) / 1e3
+    busy_ms = profile_out["device_busy_ms_per_step"]
+    flash_ms = profile_out["flash_kernel_ms_per_step"]
+    model_flops = profile_out["counted_flops_per_step"] + _attention_flops(cfg)
+    expected = {"fwd": 2 * cfg["layers"] * GPT_STEPS,
+                "dq": cfg["layers"] * GPT_STEPS,
+                "dkv": cfg["layers"] * GPT_STEPS}
+    out = {
+        "phase": "train_gpt", "card": smi,
+        "config": {"model": "gpt BASE_CONFIG", "batch": GPT_BATCH,
+                   "seq": GPT_SEQ, "steps": GPT_STEPS, "compute": "bf16",
+                   "params": "fp32", "optimizer": "adamw cosine(3e-4)",
+                   "remat": True, "ce_chunk": 1024,
+                   "deterministic_algorithms": True},
+        "losses": {"flash": la, "einsum": lb, "resumed_from_10": lc,
+                   "fixed_batch": lf, "planted_backward": planted_losses},
+        "max_rel_loss_diff_flash_vs_einsum": max_rel(la),
+        "grad_check_step_0": grad_check,
+        "planted_backward": {
+            f: {"max_rel_loss_diff_vs_einsum": max_rel(planted_losses[f]),
+                "grad_max_rel_diff": grad_check[f]["max_rel_diff"]}
+            for f in PLANTED_BACKWARD},
+        "tolerance": {"loss_rtol": GPT_EINSUM_RTOL,
+                      "grad_rtol": GPT_GRAD_RTOL},
+        "max_abs_loss_diff_resumed": max(abs(x - y)
+                                         for x, y in zip(la[10:], lc)),
+        "launches": {"flash": launches_a, "einsum": launches_b,
+                     "resumed": launches_c, "expected_flash": expected},
+        "resume_steps": out_c.get("resume_steps"),
+        "tokens_per_s_steps_11_20": tokens * len(step_ms) / span_s,
+        "step_ms_median": 1e3 * median_s, "step_ms": step_ms,
+        "einsum_step_ms_median": statistics.median(einsum_ms),
+        "einsum_step_ms": einsum_ms,
+        "step_ms_median_steps_2_9": {"flash": steps_2_9(rec_a),
+                                     "einsum": steps_2_9(rec_b)},
+        "optimizer_ms_per_step": statistics.mean(
+            a.elapsed_time(b) for a, b in rec_a.updates[10:20]),
+        "wall_s": {"flash": wall_a, "einsum": wall_b},
+        "max_memory_allocated": peak, "peak_gb": peak / 1e9,
+        "host_stages_flash": out_a["host_stages"],
+        "profile": profile_out,
+        "idle_share_unprofiled": 1.0 - busy_ms / (1e3 * median_s),
+        "idle_share_steps_2_9": 1.0 - busy_ms / steps_2_9(rec_a),
+        "flash_ms_per_step": sum(flash_ms.values()),
+        "flash_share_of_step": sum(flash_ms.values()) / (1e3 * median_s),
+        "model_flops_per_step": model_flops,
+        "attention_flops_per_step": _attention_flops(cfg),
+        "mfu_bf16": model_flops / median_s / BF16_FLOPS,
+    }
+    emit(out)
+    problems = []
+    if out["max_rel_loss_diff_flash_vs_einsum"] > GPT_EINSUM_RTOL:
+        problems.append("flash and einsum losses part by %g relative > %g"
+                        % (out["max_rel_loss_diff_flash_vs_einsum"],
+                           GPT_EINSUM_RTOL))
+    if not grad_check["sound"]["max_rel_diff"] <= GPT_GRAD_RTOL:
+        problems.append("step-0 gradients of the kernels and einsum part by "
+                        "%g relative > %g at %s"
+                        % (grad_check["sound"]["max_rel_diff"],
+                           GPT_GRAD_RTOL, grad_check["sound"]["leaf"]))
+    for fault in PLANTED_BACKWARD:
+        if not grad_check[fault]["max_rel_diff"] > GPT_GRAD_RTOL:
+            problems.append("the gradient gate passes planted fault %s"
+                            % fault)
+    for fault in LOSS_GATE_SEES:
+        if not max_rel(planted_losses[fault]) > GPT_EINSUM_RTOL:
+            problems.append("the loss gate passes planted fault %s" % fault)
+    if len(lc) != 10 or out["max_abs_loss_diff_resumed"] != 0.0:
+        problems.append("the resumed run does not reproduce steps 11-20 "
+                        "bitwise (%d losses, off by %g)"
+                        % (len(lc), out["max_abs_loss_diff_resumed"]))
+    if out_c.get("resume_steps") != [10]:
+        problems.append("the resumed run restored %r, not step 10"
+                        % out_c.get("resume_steps"))
+    if launches_a != expected:
+        problems.append("flash launches %r, expected %r"
+                        % (launches_a, expected))
+    if any(launches_b.values()):
+        problems.append("the einsum run launched %r" % launches_b)
+    if launches_c != {k: n // 2 for k, n in expected.items()}:
+        problems.append("the resumed run launched %r, expected half of %r"
+                        % (launches_c, expected))
+    if len(la) != GPT_STEPS or len(lb) != GPT_STEPS or \
+            out_a["steps"] != GPT_STEPS:
+        problems.append("runs did not take %d steps" % GPT_STEPS)
+    if not all(np.isfinite(x) for x in la + lb + lc + lf):
+        problems.append("a loss is not finite")
+    if not lf[-1] < lf[0]:
+        problems.append("20 steps on one batch did not lower the loss "
+                        "(%g -> %g)" % (lf[0], lf[-1]))
+    if problems:
+        fail("train_gpt: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA GPU", file=sys.stderr)
         return 2
+    # cuBLAS reads this when its handle is made; deterministic algorithms
+    # (the train_gpt phase) refuse cuBLAS without it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("chip_smoke: TF32 off for matmul and cuDNN (fp32 throughout)",
@@ -712,8 +1265,25 @@ def main() -> int:
     kernels = phase_kernels(hbm_rate(env["device"]))
     serve = phase_serve(env["nvidia_smi"])
     train = phase_train(env["nvidia_smi"])
+    train_gpt_out = phase_train_gpt(env["nvidia_smi"])
     full = kernels["kernels"][0]["shapes"][-1]
     sgd = kernels["kernels"][1]
+    flash = kernels["flash"]
+    flash_rows = []
+    for name, key, replaces in FLASH_KERNELS:
+        row = flash["timing"][key]
+        outputs = {"fwd": ("o", "lse"), "dq": ("dq",),
+                   "dkv": ("dk", "dv")}[key]
+        cases = flash["small_fp32"] + [flash["lse_entry"], flash["path"]]
+        flash_rows.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": replaces,
+            "launches": train_gpt_out["launches"]["flash"][key],
+            "max_abs_err": max(c["errors"][o]["max_abs_err"]
+                               for c in cases for o in outputs),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -728,7 +1298,8 @@ def main() -> int:
         "launches": train["launches"]["fused_sgd"],
         "max_abs_err": sgd["max_abs_err"], "ms": sgd["kernel_ms"],
         "plain_ms": sgd["plain_ms"], "bound_ms": sgd["bound_ms"],
-        "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"]}]})
+        "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"]}]
+        + flash_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,18 +1,28 @@
 """Decoder-only causal LM (GPT family), the counterpart of
-``paddle_operator_tpu/models/gpt.py`` on the einsum attention path.
+``paddle_operator_tpu/models/gpt.py``: forward, training loss and
+synthetic batches.
 
 Pre-LN blocks with rotary embeddings; the parameter tree has the JAX
 package's keys and layouts (``embed.tok.table``, ``layers[i].{ln1, attn,
 ln2, mlp.{fc1, fc2}}``, ``final_ln``, ``lm_head`` without bias), so a tree
 initialised by the JAX package and converted by :mod:`..bridge` runs here
-unchanged. MoE configs are refused: the port has no MoE layers yet.
+unchanged. Compute is in ``dtype`` (bf16 by default) on the tree's fp32
+parameters; attention is ``nn.mha(impl=attn_impl, causal=True)``, which
+with "auto" runs the flash kernels for CUDA tensors. ``remat`` recomputes
+each block in the backward (``torch.utils.checkpoint``, non-reentrant, so
+``torch.autograd.grad`` works through it).
+
+MoE configs are refused: the port has no MoE layers yet, so the
+reference's MoE aux loss is always 0 here. ``encode`` and ``apply`` return
+the hidden states and the logits alone, without that aux term.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import nn
 
@@ -57,29 +67,92 @@ def init(generator: torch.Generator, config: Optional[dict] = None) -> Dict:
     return params
 
 
-def _block(layer: Dict, x: torch.Tensor) -> torch.Tensor:
+def _block(layer: Dict, x: torch.Tensor, dtype: torch.dtype, attn_impl: Any,
+           positions: Optional[torch.Tensor]) -> torch.Tensor:
     """Pre-LN decoder block: x + attn(ln1 x); x + ffn(ln2 x)."""
-    y = nn.mha(layer["attn"], nn.layernorm(layer["ln1"], x, dtype=F32),
-               dtype=F32, causal=True, use_rope=True)
+    if "moe" in layer:
+        raise ValueError("the torch port has no MoE layers")
+    causal = not callable(attn_impl)  # callables (ring/ulysses) own masking
+    y = nn.mha(layer["attn"], nn.layernorm(layer["ln1"], x, dtype=dtype),
+               dtype=dtype, impl=attn_impl, causal=causal, use_rope=True,
+               positions=positions)
     x = x + y
-    z = nn.layernorm(layer["ln2"], x, dtype=F32)
-    z = nn.dense(layer["mlp"]["fc1"], z, dtype=F32)
+    z = nn.layernorm(layer["ln2"], x, dtype=dtype)
+    z = nn.dense(layer["mlp"]["fc1"], z, dtype=dtype)
     z = nn.gelu(z)
-    z = nn.dense(layer["mlp"]["fc2"], z, dtype=F32)
+    z = nn.dense(layer["mlp"]["fc2"], z, dtype=dtype)
     return x + z
 
 
-def encode(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
-    """Backbone up to (but excluding) the LM head, in fp32: [B, S] ids ->
-    [B, S, D] final-LN hidden states."""
-    x = nn.embedding(params["embed"]["tok"], input_ids, F32)
+def encode(params: Dict, input_ids: torch.Tensor,
+           dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+           attn_impl: Any = "auto",
+           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Backbone up to (but excluding) the LM head: [B, S] ids -> [B, S, D]
+    final-LN hidden states in ``dtype``."""
+    x = nn.embedding(params["embed"]["tok"], input_ids, dtype)
     for layer in params["layers"]:
-        x = _block(layer, x)
-    return nn.layernorm(params["final_ln"], x, dtype=F32)
+        if remat:
+            x = checkpoint(_block, layer, x, dtype, attn_impl, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(layer, x, dtype, attn_impl, positions)
+    return nn.layernorm(params["final_ln"], x, dtype=dtype)
 
 
-def apply(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
-    """input_ids: [B, S] -> logits [B, S, V] in fp32 (the JAX ``apply``
-    with ``dtype=float32, attn_impl="einsum"``, without its MoE aux
-    loss)."""
-    return nn.dense(params["lm_head"], encode(params, input_ids), dtype=F32)
+def apply(params: Dict, input_ids: torch.Tensor,
+          dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+          attn_impl: Any = "auto",
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """input_ids: [B, S] -> logits [B, S, V] in fp32 (the LM head runs in
+    fp32, as the reference's)."""
+    x = encode(params, input_ids, dtype=dtype, remat=remat,
+               attn_impl=attn_impl, positions=positions)
+    return nn.dense(params["lm_head"], x, dtype=F32)
+
+
+def loss_fn(params: Dict, batch: Dict, train: bool = True,
+            dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+            attn_impl: Any = "auto", moe_aux_weight: float = 0.01,
+            ce_chunk: int = 0) -> Tuple[torch.Tensor, Dict]:
+    """Next-token LM loss. batch = {"input_ids" [B, S], optional
+    "loss_mask"}: labels are the ids shifted left (the last position is
+    dropped) and a ``loss_mask`` applies at the label position.
+    ``ce_chunk > 0`` streams the LM head through
+    :func:`..ops.nn.chunked_lm_xent` (no ``[B, S, V]`` logits); 0 takes
+    the dense fp32 head. Returns ``(loss, {"accuracy", "moe_aux"})`` with
+    ``moe_aux`` = 0 (no MoE layers)."""
+    ids = batch["input_ids"]
+    labels = ids[:, 1:].long()
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(labels.shape, dtype=F32, device=ids.device)
+            if mask is None else mask[:, 1:].to(F32))
+    moe_aux = torch.zeros((), dtype=F32, device=ids.device)
+
+    if ce_chunk:
+        hidden = encode(params, ids, dtype=dtype, remat=remat,
+                        attn_impl=attn_impl)
+        loss, acc = nn.chunked_lm_xent(params["lm_head"], hidden[:, :-1],
+                                       labels, mask=mask, chunk=ce_chunk,
+                                       dtype=dtype)
+        loss = loss + moe_aux_weight * moe_aux
+        return loss, {"accuracy": acc, "moe_aux": moe_aux}
+
+    logits = apply(params, ids, dtype=dtype, remat=remat,
+                   attn_impl=attn_impl)[:, :-1]
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = logp.gather(-1, labels[..., None])[..., 0]
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = -torch.sum(picked * mask) / denom
+    loss = loss + moe_aux_weight * moe_aux
+    acc = torch.sum((logits.argmax(dim=-1) == labels).to(F32) * mask) / denom
+    return loss, {"accuracy": acc, "moe_aux": moe_aux}
+
+
+def synthetic_batch(generator: torch.Generator, batch_size: int,
+                    seq_len: int = 256, vocab_size: int = 50304) -> Dict:
+    """Uniform random token ids ``[B, S]`` drawn from ``generator`` on its
+    device."""
+    ids = torch.randint(0, vocab_size, (batch_size, seq_len),
+                        generator=generator, device=generator.device)
+    return {"input_ids": ids}

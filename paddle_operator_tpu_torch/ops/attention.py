@@ -1,7 +1,18 @@
-"""Paged decode attention: the counterpart of the paged part of
-``paddle_operator_tpu/ops/attention_pallas.py``.
+"""Attention kernels of the port: the counterpart of
+``paddle_operator_tpu/ops/attention_pallas.py``, flash part and paged part.
 
-Serving decode is ONE query token per sequence against a KV history
+Flash attention (training): :func:`flash_attention` and
+:func:`flash_attention_lse` take ``[B, H, S, D]`` q/k/v and are
+differentiable through one ``torch.autograd.Function``, the counterpart of
+the reference's ``jax.custom_vjp``s. For CUDA tensors the forward launches
+kernel B2a and the backward kernels B2b (dQ) and B2c (dK/dV), all three in
+the hand-written ``csrc/flash_attention.cu``; CPU tensors take the plain
+versions beside them (:func:`_plain_flash_fwd`, :func:`_plain_flash_dq`,
+:func:`_plain_flash_dkv`), which materialise the scores and repeat the
+kernels' arithmetic. On a CUDA tensor the wrappers launch the kernel or
+raise.
+
+Paged decode (serving): one query token per sequence against a KV history
 scattered across fixed-size cache pages (:mod:`..serving.kv_cache`, the
 vLLM layout). :func:`paged_decode_attention` launches the hand-written
 CUDA kernel ``csrc/paged_decode.cu`` for CUDA tensors and uses
@@ -13,13 +24,319 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _kernels
 
 NEG_INF = -1e30
+# the reference tiles its kernels by multiples of this (its lane width);
+# block_q/block_k are checked against it so that a call valid there is
+# valid here
+MIN_BLOCK = 128
+
+
+# ---------------------------------------------------------------------------
+# flash attention: plain versions
+# ---------------------------------------------------------------------------
+
+def _reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, causal: bool = False) -> torch.Tensor:
+    """Plain einsum attention in BHSD, fp32 softmax, probabilities cast to
+    the input type before the product with v."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    if causal:
+        scores = _causal_mask(scores)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def _causal_mask(s: torch.Tensor) -> torch.Tensor:
+    """NEG_INF above the diagonal of square scores [..., S, S]."""
+    n = s.shape[-1]
+    keep = torch.tril(torch.ones((n, n), dtype=torch.bool, device=s.device))
+    return torch.where(keep, s, NEG_INF)
+
+
+def _plain_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, causal: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel B2a: ``(O, LSE)`` from materialised
+    scores, in fp32, with the kernel's scaling order (q is scaled before
+    the product) and its normalisation (``O = (P v) / l`` with
+    ``P = exp(s - m)``). O has q's type, LSE is ``[B, H, S]`` fp32."""
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if causal:
+        s = _causal_mask(s)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p, v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _plain_probs(q, k, lse, scale, causal) -> torch.Tensor:
+    """``P = exp(scale * q k^T - LSE)`` in fp32, the backward kernels'
+    recomputation (the product is scaled, not q)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = _causal_mask(s)
+    return torch.exp(s - lse[..., None])
+
+
+def _plain_ds(p, v, dout, delta) -> torch.Tensor:
+    return p * (torch.matmul(dout.float(), v.float().transpose(-1, -2))
+                - delta[..., None])
+
+
+def _plain_flash_dq(q, k, v, dout, lse, delta, scale: float,
+                    causal: bool) -> torch.Tensor:
+    """The plain version of kernel B2b: ``dQ = scale * dS k`` with
+    ``dS = P * (dO v^T - delta)``, in fp32, returned in q's type."""
+    ds = _plain_ds(_plain_probs(q, k, lse, scale, causal), v, dout, delta)
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+
+
+def _plain_flash_dkv(q, k, v, dout, lse, delta, scale: float,
+                     causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel B2c: ``dK = scale * dS^T q`` and
+    ``dV = P^T dO``, in fp32, returned in k's and v's types."""
+    p = _plain_probs(q, k, lse, scale, causal)
+    ds = _plain_ds(p, v, dout, delta)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: kernel launches
+# ---------------------------------------------------------------------------
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (a misaligned view is copied)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _kernel_operand(x: torch.Tensor, name: str, like: torch.Tensor
+                    ) -> torch.Tensor:
+    """``x`` as the kernels take it: ``like``'s shape, type and device."""
+    if x.device != like.device:
+        raise ValueError("flash attention operand %s lies on %s, q on %s"
+                         % (name, x.device, like.device))
+    if x.dtype != like.dtype or x.shape != like.shape:
+        raise ValueError("flash attention operand %s is %s %r, q is %s %r"
+                         % (name, x.dtype, tuple(x.shape), like.dtype,
+                            tuple(like.shape)))
+    return _aligned(x)
+
+
+def _kernel_rows(x: torch.Tensor, name: str, like: torch.Tensor
+                 ) -> torch.Tensor:
+    """An fp32 ``[B, H, S]`` per-row operand (LSE, delta) on ``like``'s
+    device, as the kernels take it."""
+    if (tuple(x.shape) != tuple(like.shape[:3]) or x.dtype != torch.float32
+            or x.device != like.device):
+        raise ValueError("flash attention %s must be fp32 %r on %s, got %s "
+                         "%r on %s" % (name, tuple(like.shape[:3]),
+                                       like.device, x.dtype, tuple(x.shape),
+                                       x.device))
+    return _aligned(x)
+
+
+def _check_kernel_shape(q: torch.Tensor) -> None:
+    """The kernels take what the reference's flash_attention takes: S a
+    multiple of 128 (a whole number of their tiles) and D in (64, 128,
+    256); ``supports``' S >= 256 is mha's rule, not the kernels'."""
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError("flash attention kernels take fp32 or bf16, got %s"
+                        % q.dtype)
+    if q.dim() != 4 or q.shape[2] % MIN_BLOCK or q.shape[2] == 0 \
+            or q.shape[3] not in (64, 128, 256):
+        raise ValueError(
+            "flash attention kernels take [B, H, S, D] with S %% 128 == 0 "
+            "and D in (64, 128, 256), got %r" % (tuple(q.shape),))
+
+
+def _call(fn_name: str, pointers, q: torch.Tensor, scale: float,
+          causal: bool) -> None:
+    """Launch ``flash_attention_<fn_name>`` of ``csrc/flash_attention.cu``
+    on the current stream of q's device: the tensor pointers, then
+    ``bh, s, d, dtype, scale, causal, stream``. Raises on a non-zero CUDA
+    error code."""
+    fn = getattr(_kernels.load("flash_attention"), "flash_attention_"
+                 + fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    b, h, s, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(x.data_ptr() for x in pointers), b * h, s, d,
+                 _KERNEL_DTYPES[q.dtype], float(scale), int(causal), stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_%s kernel launch failed: CUDA "
+                           "error %d" % (fn_name, err))
+    flash_attention.launches[fn_name] += 1
+
+
+def _launch_fwd(q, k, v, scale: float, causal: bool):
+    _check_kernel_shape(q)
+    q = _aligned(q)
+    k = _kernel_operand(k, "k", q)
+    v = _kernel_operand(v, "v", q)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _call("fwd", (q, k, v, out, lse), q, scale, causal)
+    return out, lse
+
+
+def _backward_operands(q, k, v, dout, lse, delta):
+    _check_kernel_shape(q)
+    q = _aligned(q)
+    return (q, _kernel_operand(k, "k", q), _kernel_operand(v, "v", q),
+            _kernel_operand(dout, "dout", q), _kernel_rows(lse, "lse", q),
+            _kernel_rows(delta, "delta", q))
+
+
+def _launch_dq(q, k, v, dout, lse, delta, scale: float, causal: bool):
+    operands = _backward_operands(q, k, v, dout, lse, delta)
+    dq = torch.empty_like(operands[0])
+    _call("dq", (*operands, dq), operands[0], scale, causal)
+    return dq
+
+
+def _launch_dkv(q, k, v, dout, lse, delta, scale: float, causal: bool):
+    operands = _backward_operands(q, k, v, dout, lse, delta)
+    dk, dv = torch.empty_like(operands[1]), torch.empty_like(operands[2])
+    _call("dkv", (*operands, dk, dv), operands[0], scale, causal)
+    return dk, dv
+
+
+def _on(x: torch.Tensor, plain, kernel, *args):
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    if x.device.type == "cpu":
+        return plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError("flash attention runs on cuda or cpu tensors, got "
+                         "%s" % x.device)
+    return kernel(*args)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(O, LSE), both differentiable; an unused output's cotangent stays
+    None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool):
+        ctx.set_materialize_grads(False)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = _on(q, _plain_flash_fwd, _launch_fwd, q, k, v, scale,
+                       causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        """dq, dk, dv: delta = rowsum(dO * O) in fp32, outside the kernels
+        as in the reference; an LSE cotangent folds into it (d LSE /
+        d scores = P, so ``dS = P * (dO v^T - (delta - g_lse))``)."""
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        delta = torch.sum(g_out.float() * out.float(), dim=-1)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        args = (q, k, v, g_out, lse, delta, ctx.scale, ctx.causal)
+        dq = _on(q, _plain_flash_dq, _launch_dq, *args)
+        dk, dv = _on(q, _plain_flash_dkv, _launch_dkv, *args)
+        return dq, dk, dv, None, None
+
+
+# ---------------------------------------------------------------------------
+# flash attention: entry points
+# ---------------------------------------------------------------------------
+
+def supports(q_shape: Sequence[int], dtype: Optional[torch.dtype] = None
+             ) -> bool:
+    """Kernel applicability (the reference's predicate): ``[B, H, S, D]``
+    with S >= 256, S a multiple of 128 and D in {64, 128, 256}."""
+    if len(q_shape) != 4:
+        return False
+    _, _, s, d = q_shape
+    return s >= 256 and s % 128 == 0 and d in (64, 128, 256)
+
+
+def _check_blocks(q_shape: Sequence[int], block_q: int, block_k: int
+                  ) -> None:
+    if block_q % MIN_BLOCK or block_k % MIN_BLOCK:
+        raise ValueError(
+            "block_q/block_k must be multiples of %d, got %d/%d"
+            % (MIN_BLOCK, block_q, block_k))
+    s = q_shape[2]
+    if s % block_q or s % block_k:
+        raise ValueError(
+            "seq len %d must divide block_q=%d and block_k=%d"
+            % (s, block_q, block_k))
+
+
+def _prepare(q, k, v, scale, block_q, block_k):
+    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
+        raise ValueError("flash attention takes q, k, v of one [B, H, S, D] "
+                         "shape, got %r %r %r" % (tuple(q.shape),
+                                                  tuple(k.shape),
+                                                  tuple(v.shape)))
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    # the reference's auto block is a multiple of 128 that divides S, so a
+    # None block is valid exactly when 128 is
+    _check_blocks(q.shape, block_q or MIN_BLOCK, block_k or MIN_BLOCK)
+    return float(scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    causal: bool = False) -> torch.Tensor:
+    """q, k, v: ``[B, H, S, D]`` -> ``[B, H, S, D]``. Differentiable.
+
+    ``block_q``/``block_k`` are checked as the reference checks them
+    (multiples of 128 that divide S; None is its auto size), so a call
+    valid in the JAX package is valid here; the CUDA kernels pick their
+    own tiles (64 x 64, or 32 x 32 at D = 256) and the plain versions need
+    none. CUDA tensors (fp32 or bf16, ``supports`` shapes) run kernel B2a
+    forward and B2b/B2c backward, counted in ``flash_attention.launches``;
+    CPU tensors run the plain versions."""
+    return flash_attention_lse(q, k, v, scale, block_q, block_k, causal)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: Optional[float] = None,
+                        block_q: Optional[int] = None,
+                        block_k: Optional[int] = None,
+                        causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like :func:`flash_attention`, and also the per-row log-sum-exp
+    (``[B, H, S]`` fp32), the quantity that merges independently computed
+    attention blocks exactly. Differentiable in both outputs: the LSE's
+    cotangent folds into delta."""
+    scale = _prepare(q, k, v, scale, block_q, block_k)
+    return _FlashAttention.apply(q, k, v, scale, causal)
+
+
+#: kernel launches since the last reset, by kernel (chip_smoke.py reads it)
+flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+
+
+# ---------------------------------------------------------------------------
+# paged decode
+# ---------------------------------------------------------------------------
 
 
 def _reference_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,

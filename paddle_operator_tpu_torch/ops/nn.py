@@ -1,6 +1,6 @@
 """Core layers as (init, apply) function pairs over dict trees of tensors:
-the subset of ``paddle_operator_tpu/ops/nn.py`` that serving and ResNet
-training need.
+the subset of ``paddle_operator_tpu/ops/nn.py`` that serving, ResNet
+training and GPT training need.
 
 Layouts are the JAX package's, so a tree converted by :mod:`..bridge`
 runs here unchanged: dense kernels are ``[in, out]``; conv kernels are
@@ -20,10 +20,11 @@ layout.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, torch.Tensor]
 
@@ -291,11 +292,22 @@ def rope(x: torch.Tensor, positions: Optional[torch.Tensor] = None,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def mha(params: Dict, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
-        causal: bool = False, use_rope: bool = False,
+def mha(params: Dict, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        impl: Union[str, Callable] = "einsum", causal: bool = False,
+        use_rope: bool = False,
         positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head self-attention, BSHD layout: the einsum path of the JAX
-    ``mha``. Causally masked scores take ``finfo(dtype).min``."""
+    """Multi-head self-attention, BSHD layout, with the reference's
+    dispatch.
+
+    impl: "einsum" (the default), "flash" (:func:`.attention.flash_attention`:
+    kernels B2 on CUDA tensors, their plain versions on the CPU), "auto"
+    (flash for CUDA tensors when the shape tiles, the counterpart of the
+    reference's flash-on-TPU), or a callable ``(q, k, v) -> ctx`` in BHSD
+    that owns masking. Flash is taken only without a ``mask`` and when
+    :func:`.attention.supports` holds. On the einsum path a boolean
+    ``mask`` (broadcast to ``[B, H, Q, K]``) and the causal mask set
+    masked scores to ``finfo(dtype).min``."""
     def proj(p: Params) -> torch.Tensor:
         return (torch.einsum("bsd,dhk->bshk", x.to(dtype),
                              p["kernel"].to(dtype)) + p["bias"].to(dtype))
@@ -303,14 +315,47 @@ def mha(params: Dict, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
     q, k, v = proj(params["q"]), proj(params["k"]), proj(params["v"])
     if use_rope:
         q, k = rope(q, positions), rope(k, positions)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
-    if causal:
-        s_len = scores.shape[-1]
-        cmask = torch.tril(torch.ones((s_len, s_len), dtype=torch.bool,
-                                      device=x.device))[None, None]
-        scores = torch.where(cmask, scores, torch.finfo(scores.dtype).min)
-    probs = torch.softmax(scores.float(), dim=-1).to(dtype)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+    if callable(impl):
+        if mask is not None or causal:
+            raise ValueError(
+                "callable attention impls own their masking/causality: pass "
+                "causal inside the callable")
+        ctx = impl(q.transpose(1, 2), k.transpose(1, 2),
+                   v.transpose(1, 2)).transpose(1, 2)
+        return _out_proj(params, ctx, dtype)
+
+    use_flash = False
+    if impl in ("flash", "auto") and mask is None:
+        from . import attention
+
+        b, s, h, d = q.shape
+        use_flash = attention.supports((b, h, s, d), dtype)
+        if impl == "auto":
+            use_flash = use_flash and x.device.type == "cuda"
+
+    if use_flash:
+        ctx = attention.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal).transpose(1, 2)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(
+            q.shape[-1])
+        if causal:
+            s_len = scores.shape[-1]
+            cmask = torch.tril(torch.ones((s_len, s_len), dtype=torch.bool,
+                                          device=x.device))[None, None]
+            mask = cmask if mask is None else torch.logical_and(mask, cmask)
+        if mask is not None:
+            scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return _out_proj(params, ctx, dtype)
+
+
+def _out_proj(params: Dict, ctx: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """MHA output projection: [B, S, H, D] context -> [B, S, dim]."""
     return (torch.einsum("bqhd,hdo->bqo", ctx, params["o"]["kernel"].to(dtype))
             + params["o"]["bias"].to(dtype))
 
@@ -322,3 +367,92 @@ def mha(params: Dict, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU, tanh approximation (as ``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# LM-head cross-entropy
+# ---------------------------------------------------------------------------
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an fp32 result from operands of one type. On CUDA a
+    low-precision product accumulates and returns in fp32 in one cuBLAS
+    call (``out_dtype``); on the CPU the operands, already rounded to
+    their type, are upcast first, which is the same math up to summation
+    order."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of low-precision operands with fp32 logits, the
+    counterpart of ``jnp.matmul(..., preferred_element_type=float32)``.
+    The backward rounds the fp32 cotangent to the operands' type and takes
+    two such products, returning grads in the operands' types."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (_mm_f32(g, b.t()).to(a.dtype),
+                _mm_f32(a.t(), g).to(b.dtype))
+
+
+def chunked_lm_xent(head_params: Params, hidden: torch.Tensor,
+                    labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None, chunk: int = 1024,
+                    dtype: torch.dtype = torch.bfloat16
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy through a big-vocab LM head without materialising the
+    ``[tokens, vocab]`` logits (the reference's ``chunked_lm_xent``).
+
+    Tokens are padded to whole chunks; each chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
+    its forward keeps only per-token scalars and the backward recomputes
+    its fp32 logits from ``(hidden chunk, kernel)``; a Python loop over
+    the chunks is the reference's ``scan``. Logits are fp32 from
+    ``dtype`` operands. Returns ``(mean loss, accuracy)`` fp32 over the
+    masked positions (``mask`` weighs label positions)."""
+    d = hidden.shape[-1]
+    flat_h = hidden.reshape(-1, d)
+    flat_l = labels.reshape(-1).long()
+    n = flat_h.shape[0]
+    flat_m = (torch.ones((n,), dtype=torch.float32, device=hidden.device)
+              if mask is None else mask.reshape(-1).float())
+    chunk = max(1, min(chunk, n))
+    pad = (-n) % chunk
+    if pad:
+        flat_h = torch.cat([flat_h, flat_h.new_zeros((pad, d))])
+        flat_l = torch.cat([flat_l, flat_l.new_zeros((pad,))])
+        flat_m = torch.cat([flat_m, flat_m.new_zeros((pad,))])
+    bias = head_params.get("bias")
+
+    def one_chunk(h, l, m, kernel, bias):
+        h, kernel = h.to(dtype), kernel.to(dtype)
+        logits = (torch.matmul(h, kernel) if dtype == torch.float32
+                  else _MatmulF32.apply(h, kernel))
+        if bias is not None:
+            logits = logits + bias.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, l[:, None])[:, 0]
+        correct = (logits.argmax(dim=-1) == l).float()
+        return torch.sum((lse - picked) * m), torch.sum(correct * m)
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    acc_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, flat_h.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        ls, acc = checkpoint(one_chunk, flat_h[sl], flat_l[sl], flat_m[sl],
+                             head_params["kernel"], bias,
+                             use_reentrant=False, preserve_rng_state=False)
+        loss_sum = loss_sum + ls
+        acc_sum = acc_sum + acc
+    denom = torch.clamp(torch.sum(flat_m), min=1.0)
+    return loss_sum / denom, acc_sum / denom

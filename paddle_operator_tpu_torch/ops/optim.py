@@ -1,8 +1,9 @@
 """Optimizers as (init, update) pairs over parameter trees: the port of
-``paddle_operator_tpu/ops/optim.py``'s SGD family.
+``paddle_operator_tpu/ops/optim.py``'s SGD family and AdamW.
 
 State is a tree with the reference's keys, ``{"step": int32 0-d,
-"momentum": tree}``, so checkpoints cross between the two packages, and
+"momentum": tree}`` (SGD) or ``{"step", "mu", "nu"}`` (AdamW), so
+checkpoints cross between the two packages, and
 ``update(grads, state, params) -> (params, state)`` keeps the reference's
 signature. Unlike the reference, the port updates ``params`` and the
 momentum IN PLACE under ``torch.no_grad()`` (the counterpart of the JAX
@@ -267,6 +268,66 @@ def fused_sgd(lr: Any, momentum: float = 0.9, weight_decay: float = 0.0,
         return params, state
 
     return Optimizer(_init_state, update)
+
+
+def _adamw_state(params: Any) -> dict:
+    first = bridge.leaves(params)[0]
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+    return {"step": torch.zeros((), dtype=torch.int32, device=first.device),
+            "mu": bridge.tree_map(zeros, params),
+            "nu": bridge.tree_map(zeros, params)}
+
+
+def adamw(lr: Any, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.01, wd_mask: Any = None) -> Optimizer:
+    """AdamW with decoupled weight decay (the reference's ``adamw``), in
+    place. ``lr`` is a float or ``step -> lr``; the lr and the bias
+    corrections ``1 - b**step`` are 0-d fp32 tensors on the device.
+
+    Each operation of the reference runs over all leaves at once with
+    ``torch._foreach_*`` (a handful of launches per operation, not one
+    per leaf), in the reference's order: ``mu = b1*mu + (1-b1)*g``;
+    ``nu = b2*nu + ((1-b2)*g)*g``; ``d = (mu/c1) / (sqrt(nu/c2) + eps)``;
+    ``d = d + wd*p`` where the mask is on; ``p = p - lr*d``. The JAX
+    package has no fused AdamW kernel, so none is written here."""
+    lr_fn = lr if callable(lr) else (lambda step: lr)
+
+    @torch.no_grad()
+    def update(grads: Any, state: dict, params: Any):
+        state["step"] += 1
+        step = state["step"].to(torch.float32)
+        lr_t = _lr_tensor(lr_fn, state["step"])
+        c1 = 1.0 - torch.pow(b1, step)
+        c2 = 1.0 - torch.pow(b2, step)
+        ps = bridge.leaves(params)
+        gs = [torch.zeros_like(p, dtype=torch.float32) if g is None
+              else g.float() for p, g in zip(ps, _flat_grads(grads, params))]
+        mus, nus = bridge.leaves(state["mu"]), bridge.leaves(state["nu"])
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, torch._foreach_mul(gs, 1 - b1))
+        g2 = torch._foreach_mul(gs, 1 - b2)
+        torch._foreach_mul_(g2, gs)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, g2)
+        del g2, gs
+        den = torch._foreach_div(nus, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        d = torch._foreach_div(mus, c1)
+        torch._foreach_div_(d, den)
+        del den
+        if weight_decay:
+            on = [i for i, decay in enumerate(
+                _decays(params, weight_decay, wd_mask)) if decay]
+            if on:
+                torch._foreach_add_(
+                    [d[i] for i in on],
+                    torch._foreach_mul([ps[i] for i in on], weight_decay))
+        torch._foreach_mul_(d, lr_t)
+        torch._foreach_sub_(ps, d)
+        return params, state
+
+    return Optimizer(_adamw_state, update)
 
 
 def cosine_schedule(base_lr: float, total_steps: int,

@@ -1,4 +1,5 @@
-"""Seeded numpy inputs shared by the port's tests and ``chip_smoke.py``.
+"""Seeded numpy inputs, and the bf16 comparison rule with the planted
+faults it must reject, shared by the port's tests and ``chip_smoke.py``.
 
 Inputs are made with numpy so that the JAX reference and the port see the
 same numbers; each case is a dict of numpy arrays plus its shape fields.
@@ -9,6 +10,63 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
+
+#: the additive part of the bf16 rule: covers fp32 summation-order
+#: differences of results near 0, where one bf16 ulp is smaller than they
+BF16_ATOL = 1e-5
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element of ``x`` (fp32): ``2^(e - 8)`` for
+    ``|x| = m 2^e`` with ``m`` in [0.5, 1), and 0 at 0."""
+    x = x.float()
+    _, e = torch.frexp(x)
+    ulp = torch.pow(2.0, (e - 8).float())
+    return torch.where(x == 0, torch.zeros_like(ulp), ulp)
+
+
+def bf16_errors(got: torch.Tensor, want: torch.Tensor,
+                atol: float = BF16_ATOL) -> dict:
+    """``got`` against a bf16 ``want`` element by element: each may part
+    from its ``want`` by one bf16 ulp of that value plus ``atol``, what
+    two fp32 results that differ only in summation order may come to once
+    each is rounded to bf16. ``worst`` is the largest error over its
+    bound (at most 1 passes); ``outside`` counts elements over it."""
+    err = torch.abs(got.float() - want.float())
+    ratio = err / (bf16_ulp(want) + atol)
+    return {"max_abs_err": err.max().item(), "worst": ratio.max().item(),
+            "outside": int(torch.count_nonzero(ratio > 1).item())}
+
+
+def causal_attention_autograd(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              scale: float, edge: int = 0
+                              ) -> Dict[str, torch.Tensor]:
+    """Causal attention materialised in fp32, differentiated by autograd
+    (another summation order than the kernels' and the plain versions').
+    ``edge`` is how many keys past the diagonal the mask reaches: 1 plants
+    an off-by-one fault. O, dQ, dK and dV for the cotangent ``dout``, in
+    q's type."""
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    s = torch.matmul(leaves[0] * scale, leaves[1].transpose(-1, -2))
+    n = s.shape[-1]
+    keep = torch.tril(torch.ones((n, n), dtype=torch.bool, device=s.device),
+                      diagonal=edge)
+    p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
+    out = torch.matmul(p, leaves[2])
+    grads = torch.autograd.grad(out, leaves, dout.float())
+    return {name: x.detach().to(q.dtype)
+            for name, x in zip(("o", "dq", "dk", "dv"), (out, *grads))}
+
+
+def misscaled_tile(x: torch.Tensor, rows: int = 64) -> torch.Tensor:
+    """A planted fault: ``x`` ``[B, H, S, D]`` with one tile (first batch
+    and head, ``rows`` rows from S/2) scaled by 1 + 2^-6."""
+    y = x.clone()
+    start = x.shape[2] // 2
+    y[0, 0, start:start + rows] *= 1 + 2.0 ** -6
+    return y
 
 #: the paged-decode cases: the ragged, non-contiguous case of the JAX
 #: package's serving tests; a bs=16, head_dim=128 case; and the full-width

@@ -136,5 +136,6 @@ def test_port_gpt_forward_matches_jax(jax_tree):
                         jnp.asarray(ids, jnp.int32), dtype=jnp.float32,
                         attn_impl="einsum")
     got = tgpt.apply(bridge.params_from_numpy(jax_tree, device="cpu"),
-                     torch.from_numpy(ids))
+                     torch.from_numpy(ids), dtype=torch.float32,
+                     attn_impl="einsum")
     assert np.max(np.abs(got.numpy() - np.asarray(want))) < 1e-4
