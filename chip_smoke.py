@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the three ported paths:
+path. Then it drives the five ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -22,7 +22,14 @@ path. Then it drives the three ported paths:
   the einsum attention, 20 steps on the flash-attention kernels, the same
   20 on the einsum attention, a resume from the step-10 checkpoint, and
   the 20 steps again under planted backward faults that the gates must
-  see; gates in ``phase_train_gpt``.
+  see; gates in ``phase_train_gpt``;
+* train_gpt_moe: the same job with ``TPUJOB_MOE_EXPERTS=8`` (every second
+  FFN an 8-expert switch block) on the MoE dispatch/combine kernels, on
+  their plain versions and on the dense einsum formulation, a resume and
+  two planted faults; gates in ``phase_train_gpt_moe``;
+* train_bert: BERT-base through ``examples/train_bert.py``'s job, and
+  BERT-base-MoE at the JAX bench's setup on the kernels, on their plain
+  versions and dense; gates in ``phase_train_bert``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -46,9 +54,9 @@ import numpy as np
 import torch
 
 from paddle_operator_tpu_torch import bridge, testing
-from paddle_operator_tpu_torch.examples import train_gpt
-from paddle_operator_tpu_torch.models import gpt, resnet
-from paddle_operator_tpu_torch.ops import _kernels, attention, optim
+from paddle_operator_tpu_torch.examples import train_bert, train_gpt
+from paddle_operator_tpu_torch.models import bert, gpt, resnet
+from paddle_operator_tpu_torch.ops import _kernels, attention, moe, optim
 from paddle_operator_tpu_torch.parallel import build_train_step
 from paddle_operator_tpu_torch.runner import TrainJob, run_training
 from paddle_operator_tpu_torch.serving import (
@@ -86,6 +94,21 @@ DEPTH, CLASSES, IMAGE, BATCH = 50, 1000, 224, 128
 #: the train_gpt phase: GPT-2 small, examples/train_gpt.py's batch and
 #: sequence, 20 steps (the example's default is 100)
 GPT_BATCH, GPT_SEQ, GPT_STEPS = 16, 1024, 20
+MOE_SOURCE = "paddle_operator_tpu_torch/csrc/moe.cu"
+#: the two MoE kernels: (kernels-line name, key of
+#: moe.moe_apply_fused.launches, the TPU kernel it replaces)
+MOE_KERNELS = (
+    ("moe_dispatch", "dispatch", "paddle_operator_tpu/ops/moe.py:156"),
+    ("moe_combine", "combine", "paddle_operator_tpu/ops/moe.py:187"))
+#: the train_gpt_moe phase: examples/train_gpt.py with TPUJOB_MOE_EXPERTS=8
+#: (GPT-2 small, every second FFN a switch-MoE block), 10 steps, one
+#: checkpoint at step 5
+MOE_EXPERTS, MOE_STEPS, MOE_SAVE_AT = 8, 10, 5
+#: the train_bert phase: examples/train_bert.py (BERT-base, batch 64 x
+#: 512), and BERT-base-MoE at the JAX bench's setup (bench.py _moe_bench:
+#: 8 experts on every second layer, batch 16 x 512)
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_FIXED_STEPS = 64, 512, 5, 6
+BERT_MOE_BATCH, BERT_MOE_STEPS = 16, 4
 
 
 def emit(obj) -> None:
@@ -488,7 +511,13 @@ def phase_kernels(rate: float) -> dict:
     attention.flash_attention.launches = dict.fromkeys(
         attention.flash_attention.launches, 0)
     flash = _flash_measure(rate)
-    out = {"phase": "kernels", "flash": dict(
+    _zero(moe.moe_apply_fused.launches)
+    moe_out = _moe_measure(rate)
+    out = {"phase": "kernels", "moe": dict(
+        moe_out, replaces={n: r for n, _, r in MOE_KERNELS},
+        source=MOE_SOURCE,
+        comparison_launches=dict(moe.moe_apply_fused.launches)),
+        "flash": dict(
         flash, replaces={n: r for n, _, r in FLASH_KERNELS},
         source=FLASH_SOURCE, tolerance={"fp32": FLASH_TOL_F32,
                                         "bf16": FLASH_TOL_BF16},
@@ -511,7 +540,7 @@ def phase_kernels(rate: float) -> dict:
     if not sgd["max_abs_err"] <= 0.0:
         fail("fused SGD kernel off by %g from its plain version (stated "
              "tolerance: bitwise)" % sgd["max_abs_err"])
-    problems = _flash_failures(flash)
+    problems = _flash_failures(flash) + _moe_failures(moe_out)
     if problems:
         fail("kernels: " + "; ".join(problems))
     return out
@@ -638,8 +667,8 @@ def _full_forward_agreement(params, traffic, streams) -> tuple:
     agree = total = 0
     for (prompt, _), stream in zip(traffic, streams):
         ids = torch.tensor([list(prompt) + stream], device=DEVICE)
-        logits = gpt.apply(params, ids, dtype=torch.float32,
-                           attn_impl="einsum")
+        logits, _ = gpt.apply(params, ids, dtype=torch.float32,
+                              attn_impl="einsum")
         n = len(prompt)
         pred = logits[0, n - 1:n - 1 + len(stream)].argmax(-1).tolist()
         agree += sum(int(a == b) for a, b in zip(pred, stream))
@@ -724,6 +753,7 @@ class _StepRecorder:
         self.loss = loss
         self.losses, self.starts, self.updates, self.update_host = \
             [], [], [], []
+        self.moe_aux = []
         self.end = None
 
     def loss_fn(self, params, batch):
@@ -732,6 +762,8 @@ class _StepRecorder:
         self.starts.append(ev)
         loss, aux = self.loss(params, batch)
         self.losses.append(loss.detach())
+        if isinstance(aux, dict) and "moe_aux" in aux:
+            self.moe_aux.append(aux["moe_aux"].detach())
         return loss, aux
 
     def wrap(self, opt: optim.Optimizer) -> optim.Optimizer:
@@ -748,6 +780,12 @@ class _StepRecorder:
 
     def host_losses(self) -> list:
         return torch.stack(self.losses).cpu().tolist()
+
+    def forward_gaps_ms(self, first: int, last: int) -> list:
+        """ms from each step's forward to the next, steps ``first`` to
+        ``last`` (1-based; step ``last``'s gap ends at step last+1)."""
+        marks = self.starts[first - 1:last + 1]
+        return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
 
 def _train_run(opt, total: int, ckpt_dir: str, make_batch=None):
@@ -967,25 +1005,39 @@ def _gpt_env(steps: int = GPT_STEPS) -> dict:
             "TPUJOB_STEPS": str(steps)}
 
 
-def _gpt_run(attn_impl: str, ckpt_dir: str, make_batch=None):
-    """examples/train_gpt.py's TrainJob for GPT_STEPS steps, its loss and
-    optimizer wrapped by a _StepRecorder, checkpoints every 10 steps."""
-    job = train_gpt.make_job(_gpt_env(), attn_impl=attn_impl)
+def _zero(launches: dict) -> dict:
+    for key in launches:
+        launches[key] = 0
+    return launches
+
+
+def _recorded_run(job, ckpt_dir: str, make_batch=None, every: int = 10):
+    """``job`` through run_training, its loss and optimizer wrapped by a
+    _StepRecorder, checkpoints every ``every`` steps into ``ckpt_dir``
+    ("" for none). Returns (recorder, result, wall seconds)."""
     rec = _StepRecorder(job.loss_fn)
     job = dataclasses.replace(
         job, loss_fn=rec.loss_fn, optimizer=rec.wrap(job.optimizer),
         make_batch=make_batch or job.make_batch, log_every=10,
-        checkpoint_every=10, checkpoint_dir=ckpt_dir, seed=0, device=DEVICE)
-    launches = attention.flash_attention.launches
-    for key in launches:
-        launches[key] = 0
+        checkpoint_every=every, checkpoint_dir=ckpt_dir, seed=0,
+        device=DEVICE)
     t0 = time.perf_counter()
     out = run_training(job)
     rec.end = _event()
     rec.end.record()
     torch.cuda.synchronize()
     out.pop("state", None)   # free the run's params and optimizer state
-    return rec, out, time.perf_counter() - t0, dict(launches)
+    return rec, out, time.perf_counter() - t0
+
+
+def _gpt_run(attn_impl: str, ckpt_dir: str, make_batch=None):
+    """examples/train_gpt.py's TrainJob for GPT_STEPS steps, checkpoints
+    every 10 steps; also the flash launches of the run."""
+    launches = _zero(attention.flash_attention.launches)
+    rec, out, wall = _recorded_run(
+        train_gpt.make_job(_gpt_env(), attn_impl=attn_impl), ckpt_dir,
+        make_batch)
+    return rec, out, wall, dict(launches)
 
 
 def _attention_flops(cfg: dict) -> int:
@@ -997,12 +1049,15 @@ def _attention_flops(cfg: dict) -> int:
     return 3 * cfg["layers"] * 2 * 2 * d * GPT_BATCH * cfg["heads"] * pairs
 
 
-def _gpt_grad_check() -> dict:
-    """Step 0's gradients of the example's loss (remat, chunked head) on
-    its first batch: the kernels' against the einsum attention's, as the
-    largest ||g - g_einsum|| / ||g_einsum|| over the parameter leaves;
-    then the same with each planted backward fault."""
-    job = train_gpt.make_job(_gpt_env())
+def _grad_check(env: dict, references: dict, variants: dict) -> dict:
+    """Step 0's gradients of examples/train_gpt.py's loss (the job of
+    ``env``: remat, chunked head) on its first batch, each variant's
+    against each reference's, as the largest ||g - g_ref|| / ||g_ref||
+    over the parameter leaves: ``{reference: {variant: reading}}``. Every
+    value of ``references`` and ``variants`` is ``(attn_impl, context)``:
+    the loss and its backward (which recomputes under remat) run inside
+    ``context()``."""
+    job = train_gpt.make_job(env)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = job.init_params(gen)
     batch = job.make_batch(gen, 0)
@@ -1010,38 +1065,89 @@ def _gpt_grad_check() -> dict:
     for t in leaves.values():
         t.requires_grad_()
 
-    def grads(attn_impl: str) -> dict:
-        loss, _ = train_gpt.make_job(_gpt_env(), attn_impl).loss_fn(params,
-                                                                    batch)
-        return dict(zip(leaves, torch.autograd.grad(loss,
-                                                    list(leaves.values()))))
+    def grads(attn_impl: str, context) -> dict:
+        with context():
+            loss, _ = train_gpt.make_job(env, attn_impl).loss_fn(params,
+                                                                 batch)
+            return dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
 
-    ref = grads("einsum")
-
-    def reading(got: dict) -> dict:
+    def reading(got: dict, ref: dict) -> dict:
         rel = {n: (torch.linalg.vector_norm(g - ref[n])
                    / torch.linalg.vector_norm(ref[n])).item()
                for n, g in got.items()}
         worst = max(rel, key=rel.get)
         return {"max_rel_diff": rel[worst], "leaf": worst}
 
-    out = {"sound": reading(grads("auto"))}
-    for fault in PLANTED_BACKWARD:
-        with _planted_backward(fault):
-            out[fault] = reading(grads("auto"))
+    refs = {name: grads(*v) for name, v in references.items()}
+    out = {name: {} for name in refs}
+    for name, v in variants.items():
+        got = grads(*v)
+        for ref_name, ref in refs.items():
+            out[ref_name][name] = reading(got, ref)
     return out
 
 
-def _gpt_profile(warm: int = 2, steps: int = 3) -> dict:
-    """torch.profiler over ``steps`` train steps of the example's loss and
-    optimizer on one fixed batch: device busy time and the three flash
-    kernels' device time per step. Model FLOPs from FlopCounterMode over
-    one forward and backward without recompute (remat off, dense head),
-    plus the attention FLOPs by hand."""
+def _gpt_grad_check() -> dict:
+    """The flash kernels' step-0 gradients against the einsum attention's,
+    sound and under each planted backward fault."""
+    variants = {"sound": ("auto", contextlib.nullcontext)}
+    for fault in PLANTED_BACKWARD:
+        variants[fault] = ("auto", functools.partial(_planted_backward,
+                                                     fault))
+    return _grad_check(_gpt_env(), {"einsum": ("einsum",
+                                                contextlib.nullcontext)},
+                       variants)["einsum"]
+
+
+FLASH_PROFILE_NAMES = ("flash_fwd_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")
+MOE_PROFILE_NAMES = ("moe_dispatch_kernel", "moe_combine_kernel")
+
+
+def _step_profile(job, params, batch, names=(), warm: int = 2,
+                  steps: int = 3) -> dict:
+    """torch.profiler over ``steps`` train steps of ``job``'s loss and
+    optimizer from ``params`` on one fixed batch, after ``warm`` steps:
+    device busy time, the top kernels and each kernel in ``names``' device
+    time per step."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    step_fn, state = build_train_step(job.loss_fn, job.optimizer,
+                                      params, batch, grad_clip=job.grad_clip)
+    for _ in range(warm):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in by_kernel:
+                if name in e.name:
+                    by_kernel[name] += (e.time_range.end
+                                        - e.time_range.start) / 1e3 / steps
+    out = _profile_summary(prof, steps, "step")
+    out.update(profiled_wall_ms_per_step=1e3 * wall / steps,
+               kernel_ms_per_step=by_kernel)
+    return out
+
+
+def _gpt_profile(env=None, names=FLASH_PROFILE_NAMES) -> dict:
+    """:func:`_step_profile` of the example's job (from ``env``, default
+    ``_gpt_env()``), and the model FLOPs from FlopCounterMode over one
+    forward and backward without recompute (remat off, dense head); the
+    attention FLOPs, which it does not see in the kernels, are added by
+    hand by the caller."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    job = train_gpt.make_job(_gpt_env())
+    job = train_gpt.make_job(env or _gpt_env())
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = job.init_params(gen)
     batch = job.make_batch(gen, 0)
@@ -1053,34 +1159,24 @@ def _gpt_profile(warm: int = 2, steps: int = 3) -> dict:
                               ce_chunk=0)
         torch.autograd.grad(loss, list(leaves.values()))
     del loss, leaves
-    step_fn, state = build_train_step(job.loss_fn, job.optimizer,
-                                      params, batch, grad_clip=job.grad_clip)
-    del params
-    for _ in range(warm):
-        step_fn(state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step_fn(state, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
-    by_kernel = dict.fromkeys(("flash_fwd_kernel", "flash_dq_kernel",
-                               "flash_dkv_kernel"), 0.0)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for name in by_kernel:
-                if name in e.name:
-                    by_kernel[name] += (e.time_range.end
-                                        - e.time_range.start) / 1e3 / steps
-    out = _profile_summary(prof, steps, "step")
-    out.update(profiled_wall_ms_per_step=1e3 * wall / steps,
-               flash_kernel_ms_per_step=by_kernel,
-               counted_flops_per_step=counter.get_total_flops())
+    out = _step_profile(job, params, batch, names)
+    out["counted_flops_per_step"] = counter.get_total_flops()
     return out
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms on (the embedding's index backward is
+    atomic otherwise), without filling fresh memory, restored after."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[1]
 
 
 def phase_train_gpt(smi: str) -> dict:
@@ -1098,13 +1194,9 @@ def phase_train_gpt(smi: str) -> dict:
     then 20 steps on one fixed batch and a profiled window. Deterministic
     algorithms are on throughout (the embedding's index backward is
     atomic otherwise), so (c) must reproduce (a) bit for bit."""
-    det = (torch.are_deterministic_algorithms_enabled(),
-           torch.utils.deterministic.fill_uninitialized_memory)
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
     cfg = dict(gpt.BASE_CONFIG)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_gpt_")
-    try:
+    with _deterministic(), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_gpt_") as tmp:
         dirs = {k: os.path.join(tmp, k) for k in "abc"}
         grad_check = _gpt_grad_check()
         torch.cuda.reset_peak_memory_stats()
@@ -1128,10 +1220,6 @@ def phase_train_gpt(smi: str) -> dict:
         rec_f, _, _, _ = _gpt_run("auto", "",
                                   make_batch=lambda gen, step: fixed)
         profile_out = _gpt_profile()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        torch.use_deterministic_algorithms(det[0])
-        torch.utils.deterministic.fill_uninitialized_memory = det[1]
     la, lb, lc, lf = (r.host_losses() for r in (rec_a, rec_b, rec_c, rec_f))
     tokens = GPT_BATCH * GPT_SEQ
     # steps 11-20: from step 11's forward to the end of step 20's update
@@ -1155,7 +1243,7 @@ def phase_train_gpt(smi: str) -> dict:
     span_s = sum(step_ms) / 1e3
     median_s = statistics.median(step_ms) / 1e3
     busy_ms = profile_out["device_busy_ms_per_step"]
-    flash_ms = profile_out["flash_kernel_ms_per_step"]
+    flash_ms = profile_out["kernel_ms_per_step"]
     model_flops = profile_out["counted_flops_per_step"] + _attention_flops(cfg)
     expected = {"fwd": 2 * cfg["layers"] * GPT_STEPS,
                 "dq": cfg["layers"] * GPT_STEPS,
@@ -1248,6 +1336,671 @@ def phase_train_gpt(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE kernels B4a/B4b: checks and timings (part of the kernels phase)
+# ---------------------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+#: B4a/B4b against their plain versions: each output element is one copy
+#: or one fp32 product and one conversion in both, so bitwise
+MOE_TOL = 0.0
+#: the forward fault planted in the kernel check and the GPT-MoE run:
+#: combine launched without its gate
+MOE_FORWARD_FAULT = "combine_ignores_gate"
+#: the backward fault: combine's backward drops the gate's cotangent (as a
+#: needs_input_grad shortcut would), so the router learns only through
+#: the aux loss
+MOE_BACKWARD_FAULT = "gate_grad_dropped"
+PLANTED_MOE = (MOE_FORWARD_FAULT, MOE_BACKWARD_FAULT)
+
+
+#: the MoE paths a run can take: the kernels (TPUJOB_MOE_FUSED=1), the
+#: same fused formulation with the kernels' plain versions run on the card
+#: in their place, and the dense einsum formulation (TPUJOB_MOE_FUSED=0)
+MOE_PATHS = ("kernels", "plain", "dense")
+
+
+@contextlib.contextmanager
+def _moe_path(path: str, fault: str = ""):
+    """While open, MoE layers take ``path`` (one of MOE_PATHS) and, with
+    ``fault``, a planted MoE fault is in place."""
+    if path not in MOE_PATHS:
+        raise ValueError("no MoE path %r" % path)
+    saved_env = os.environ.get("TPUJOB_MOE_FUSED")
+    saved = (moe._launch_dispatch, moe._launch_combine,
+             moe._Combine.backward)
+    launch_combine, backward = saved[1], saved[2]
+
+    def combine_ignores_gate(eo, choice, pos, gate, capacity, out_dtype):
+        return launch_combine(eo, choice, pos, None, capacity, out_dtype)
+
+    def gate_grad_dropped(ctx, dout):
+        grads = backward(ctx, dout)
+        return (grads[0], None) + tuple(grads[2:])
+
+    os.environ["TPUJOB_MOE_FUSED"] = "0" if path == "dense" else "1"
+    if path == "plain":
+        moe._launch_dispatch = moe._plain_dispatch
+        moe._launch_combine = moe._plain_combine
+    if fault == MOE_FORWARD_FAULT:
+        moe._launch_combine = combine_ignores_gate
+    elif fault == MOE_BACKWARD_FAULT:
+        moe._Combine.backward = staticmethod(gate_grad_dropped)
+    elif fault:
+        raise ValueError("no planted MoE fault %r" % fault)
+    try:
+        yield
+    finally:
+        moe._launch_dispatch, moe._launch_combine = saved[:2]
+        moe._Combine.backward = staticmethod(backward)
+        if saved_env is None:
+            os.environ.pop("TPUJOB_MOE_FUSED", None)
+        else:
+            os.environ["TPUJOB_MOE_FUSED"] = saved_env
+
+
+@contextlib.contextmanager
+def _routes_logged(log: list, path: str, fault: str = ""):
+    """``_moe_path(path, fault)``, with each ``moe._route`` call's
+    routing appended to ``log`` as a ``[3, T]`` (choice, position, kept)
+    tensor, in call order: the forward's MoE layers first, then remat's
+    recompute of them from the last layer back."""
+    route = moe._route
+
+    def logged(*args):
+        out = route(*args)
+        log.append(torch.stack((out[1], out[2], (out[2] < out[3]).long())))
+        return out
+
+    moe._route = logged
+    try:
+        with _moe_path(path, fault):
+            yield
+    finally:
+        moe._route = route
+
+
+def _routing_parts(log: list, ref: list, layers: int) -> dict:
+    """Tokens of each MoE layer's forward routed apart in ``log`` and in
+    ``ref``: another (choice, position); another expert; kept in one and
+    dropped in the other. Also whether each log's recompute routed every
+    token as its forward did."""
+    pairs = list(zip(log[:layers], ref[:layers]))
+    return {
+        "tokens_apart": [int((a != b).any(0).sum().item()) for a, b in pairs],
+        "expert_apart": [int((a[0] != b[0]).sum().item()) for a, b in pairs],
+        "drop_apart": [int((a[2] != b[2]).sum().item()) for a, b in pairs],
+        "recompute_equal": all(
+            len(lg) == 2 * layers and all(
+                torch.equal(f, r) for f, r in zip(lg[:layers],
+                                                  lg[layers:][::-1]))
+            for lg in (log, ref))}
+
+
+@torch.no_grad()
+def _moe_case(tokens: int, factor: float, seed: int = 0) -> dict:
+    """``tokens`` tokens of GPT-2 small's width routed by ``moe._route`` (a
+    router from ``moe_init``, activations N(0, 1) from ``seed``, on the
+    card), with an fp32 gate and expert outputs ``[E, capacity, D]``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    d = gpt.BASE_CONFIG["hidden"]
+    params = moe.moe_init(gen, d, 8, MOE_EXPERTS)
+    x = torch.randn((1, tokens, d), generator=gen, device=DEVICE)
+    gate, choice, pos, cap, _ = moe._route(params, x, factor)
+    eo = torch.randn((MOE_EXPERTS, cap, d), generator=gen, device=DEVICE)
+    return {"x": x[0], "eo": eo, "gate": gate, "choice": choice, "pos": pos,
+            "capacity": cap, "kept": int((pos < cap).sum().item())}
+
+
+def _moe_compare(case: dict, variants) -> dict:
+    """Each (kernel, in type, out type, gated) variant launched, and its
+    plain version on the same inputs: bitwise equality and max error."""
+    out = {}
+    e, c = MOE_EXPERTS, case["capacity"]
+    for kernel, tin, tout, gated in variants:
+        if kernel == "dispatch":
+            args = (case["x"].to(tin), case["choice"], case["pos"], e, c,
+                    tout)
+            got = moe._launch_dispatch(*args)
+            want = moe._plain_dispatch(*args)
+        else:
+            args = (case["eo"].to(tin), case["choice"], case["pos"],
+                    case["gate"] if gated else None, c, tout)
+            got = moe._launch_combine(*args)
+            want = moe._plain_combine(*args)
+        torch.cuda.synchronize()
+        name = "%s %s->%s%s" % (kernel, str(tin)[6:], str(tout)[6:],
+                                " gated" if gated else "")
+        out[name] = {"bitwise": bool(torch.equal(got, want)),
+                     "max_abs_err": (got.float() - want.float()).abs()
+                     .max().item()}
+        if kernel == "combine":
+            out[name]["dropped_rows_zero"] = not bool(
+                got[case["pos"] >= c].any())
+    return out
+
+
+def moe_bound(kind: str, case: dict, rate: float):
+    """The least time of one B4 call on ``case`` in bf16, in ms, and what
+    sets it: B4a reads the kept rows and the int64 routing and writes all
+    of ``[E, C, D]``; B4b reads the kept expert rows, the routing and the
+    fp32 gate, writes ``[T, D]`` and does one product per kept element."""
+    t, d = case["x"].shape
+    kept_bytes = case["kept"] * d * 2
+    if kind == "dispatch":
+        nbytes = kept_bytes + MOE_EXPERTS * case["capacity"] * d * 2 + 16 * t
+        flops = 0
+    else:
+        nbytes = kept_bytes + t * d * 2 + 20 * t
+        flops = case["kept"] * d
+    bytes_ms, flops_ms = 1e3 * nbytes / rate, 1e3 * flops / FP32_FLOPS
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nbytes)
+
+
+#: every (kernel, in type, out type, gated) variant: the forward's
+#: bf16 pair, the backward's (dispatch of combine's fp32 cotangent, the
+#: ungated combine for dx and, in fp32, for the gate) and the fp32 pairs
+MOE_VARIANTS = (
+    ("dispatch", BF16, BF16, False), ("dispatch", F32, BF16, False),
+    ("dispatch", F32, F32, False), ("combine", BF16, BF16, True),
+    ("combine", BF16, BF16, False), ("combine", BF16, F32, False),
+    ("combine", F32, F32, True))
+
+
+def _moe_measure(rate: float) -> dict:
+    """Kernels B4a/B4b against their plain versions, bitwise, over every
+    type pair the forward and the backward pass them: at the GPT-2 small
+    MoE path's shape (T = 16 x 1024, D = 768, E = 8, capacity 2560) and at
+    the BERT-base-MoE path's (T = 16 x 512, capacity 1280); then at a
+    ragged T; at capacity factor 0.5 (dropped rows must be exact zeros);
+    and with the forward fault planted (the check must reject it). Timed
+    at the GPT path's shape in bf16 beside the plain versions, a PyTorch
+    yardstick for each (``index_copy_`` into a zeroed ``[E*C + 1, D]``
+    buffer; ``index_select`` of the rows times the gate, zero for dropped
+    tokens) and the dense einsum formulation's dispatch and combine."""
+    path = _moe_case(GPT_BATCH * GPT_SEQ, 1.25)
+    bert_path = _moe_case(BERT_MOE_BATCH * BERT_SEQ, 1.25, seed=2)
+    checks = {"path": _moe_compare(path, MOE_VARIANTS),
+              "bert_path": dict(_moe_compare(bert_path, MOE_VARIANTS),
+                                tokens=BERT_MOE_BATCH * BERT_SEQ,
+                                capacity=bert_path["capacity"])}
+    del bert_path
+    for name, tokens, factor in (("ragged", 3 * 1024 - 5, 1.25),
+                                 ("drops", GPT_BATCH * GPT_SEQ, 0.5)):
+        case = _moe_case(tokens, factor, seed=1)
+        checks[name] = _moe_compare(case, (
+            ("dispatch", BF16, BF16, False), ("combine", BF16, BF16, True)))
+        checks[name]["tokens"] = tokens
+        checks[name]["dropped"] = tokens - case["kept"]
+    with _moe_path("kernels", MOE_FORWARD_FAULT):
+        planted = _moe_compare(path, (("combine", BF16, BF16, True),))
+
+    e, c = MOE_EXPERTS, path["capacity"]
+    x, eo = path["x"].to(BF16), path["eo"].to(BF16)
+    choice, pos, gate = path["choice"], path["pos"], path["gate"]
+    t, d = x.shape
+    keep = pos < c
+    slots = torch.where(keep, choice * c + pos, e * c)
+    buf = torch.zeros((e * c + 1, d), dtype=BF16, device=DEVICE)
+    rows = torch.where(keep, choice * c + pos, 0)
+    gate_kept = torch.where(keep, gate, 0.0)[:, None]
+    onehot = (torch.nn.functional.one_hot(choice, e).float()[:, :, None]
+              * torch.nn.functional.one_hot(pos.clamp(0, c - 1), c)
+              .float()[:, None, :] * keep[:, None, None])
+    dense_dispatch = onehot.to(BF16)
+    dense_combine = (onehot * gate[:, None, None]).to(BF16)
+    del onehot
+    calls = {
+        "dispatch": (
+            lambda: moe._launch_dispatch(x, choice, pos, e, c, BF16),
+            lambda: moe._plain_dispatch(x, choice, pos, e, c, BF16),
+            lambda: buf.zero_().index_copy_(0, slots, x),
+            lambda: torch.einsum("tec,td->ecd", dense_dispatch, x)),
+        "combine": (
+            lambda: moe._launch_combine(eo, choice, pos, gate, c, BF16),
+            lambda: moe._plain_combine(eo, choice, pos, gate, c, BF16),
+            lambda: torch.index_select(eo.view(e * c, d), 0, rows)
+            * gate_kept,
+            lambda: torch.einsum("tec,ecd->td", dense_combine, eo))}
+    timing = {}
+    for kind, (kernel, plain, library, dense) in calls.items():
+        bound, by, nbytes = moe_bound(kind, path, rate)
+        ms = device_ms(kernel)
+        timing[kind] = {"kernel_ms": ms, "plain_ms": device_ms(plain),
+                        "library_ms": device_ms(library),
+                        "dense_einsum_ms": device_ms(dense, reps=5),
+                        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                        "gb_per_s": nbytes / ms / 1e6}
+    return {"shape": {"T": t, "D": d, "E": e, "C": c, "kept": path["kept"]},
+            "checks": checks, "planted": {MOE_FORWARD_FAULT: planted},
+            "timing": timing, "tolerance": MOE_TOL,
+            "library": {"dispatch": "zero_() + index_copy_ into [E*C+1, D]",
+                        "combine": "index_select of [E*C, D] rows * gate "
+                                   "(zero for dropped tokens; fp32 out)"}}
+
+
+def _moe_failures(m: dict) -> list:
+    problems = []
+    for case, results in m["checks"].items():
+        for name, r in results.items():
+            if not isinstance(r, dict):
+                continue
+            if not r["bitwise"]:
+                problems.append("%s at %s off by %g (stated tolerance: "
+                                "bitwise)" % (name, case, r["max_abs_err"]))
+            if not r.get("dropped_rows_zero", True):
+                problems.append("%s at %s: a dropped row is not zero"
+                                % (name, case))
+    if not m["checks"]["drops"]["dropped"]:
+        problems.append("capacity factor 0.5 dropped no token")
+    if any(r["bitwise"] for r in m["planted"][MOE_FORWARD_FAULT].values()):
+        problems.append("the kernel check passes planted fault %s"
+                        % MOE_FORWARD_FAULT)
+    return problems
+
+
+# ---------------------------------------------------------------------------
+# train_gpt_moe: GPT-2 small with 8-expert switch FFNs (examples/train_gpt)
+# ---------------------------------------------------------------------------
+
+#: |loss(kernels) - loss(dense)| / loss allowed at every step of the 10.
+#: The dense formulation rounds gate x dispatch to bf16 and the kernels
+#: keep the gate in fp32; near-tied tokens then route apart in the deep
+#: layers, and as the routers collapse onto few experts the capacity drops
+#: part further. On an H100 the two parted by 3.7e-3 by step 10, and the
+#: planted faults by only 5.1e-3 and 3.9e-3: this gate holds the two
+#: formulations together, the plain run below catches faults
+GPT_MOE_LOSS_RTOL = 1e-2
+#: step 0's gradients, kernels against the dense formulation: the largest
+#: ||g - g_dense|| / ||g_dense|| over the parameter leaves. On an H100:
+#: 0.127 sound (an expert wi of layer 10: each expert's gradient sums its
+#: tokens' nearly random contributions, and 207 of the 16,384 tokens,
+#: 1.3 %, take another expert there, as routing_step_0 counts), 1.24 and
+#: 0.97 under the planted faults
+GPT_MOE_GRAD_RTOL = 0.3
+#: steps of each planted-fault run (on the 10-step schedule)
+MOE_PLANTED_STEPS = 5
+
+
+def _moe_env(steps: int = MOE_STEPS) -> dict:
+    return dict(_gpt_env(steps), TPUJOB_MOE_EXPERTS=str(MOE_EXPERTS))
+
+
+def moe_layers(cfg: dict) -> int:
+    """The MoE layers of a GPT or BERT config (``li % moe_every == 0``)."""
+    return sum(1 for li in range(cfg["layers"])
+               if cfg["moe_experts"] and li % cfg["moe_every"] == 0)
+
+
+def moe_launches_per_step(cfg: dict, remat: bool) -> dict:
+    """B4a/B4b launches of one train step, from the code: per MoE layer
+    the forward launches each once (twice under remat, which recomputes
+    it), the backward dispatches once (combine's cotangent) and combines
+    twice (dispatch's cotangent, the gate's ungated rows)."""
+    layers = moe_layers(cfg)
+    forwards = 2 if remat else 1
+    return {"dispatch": layers * (forwards + 1),
+            "combine": layers * (forwards + 2)}
+
+
+def _gpt_moe_run(path: str, ckpt_dir: str, make_batch=None,
+                 every: int = MOE_SAVE_AT, fault: str = "",
+                 total: int = MOE_STEPS):
+    """examples/train_gpt.py's job with TPUJOB_MOE_EXPERTS (a MOE_STEPS
+    schedule), ``total`` steps of it, on MoE ``path``; also the B4
+    launches of the run."""
+    launches = _zero(moe.moe_apply_fused.launches)
+    job = dataclasses.replace(train_gpt.make_job(_moe_env()),
+                              total_steps=total)
+    with _moe_path(path, fault):
+        rec, out, wall = _recorded_run(job, ckpt_dir, make_batch, every)
+    return rec, out, wall, dict(launches)
+
+
+def phase_train_gpt_moe(smi: str) -> dict:
+    """GPT-2 small with a switch-MoE FFN of 8 experts on every second
+    layer (examples/train_gpt.py with TPUJOB_MOE_EXPERTS=8: batch 16 x
+    1024, bf16 on fp32 params, adamw + cosine(3e-4) over 10 steps, wd 0.1,
+    grad clip 1.0, remat, ce_chunk 1024), deterministic algorithms on.
+    First step 0's gradients on the kernels against the dense formulation
+    and against the plain versions run on the card, sound and under each
+    planted fault, with the tokens of each MoE layer that the sound run
+    routes apart from each reference (and remat's recompute against its
+    forward); then
+    (a) 10 steps on the kernels, checkpoints at steps 5 and 10;
+    (p) the same 10 steps with the plain versions on the card;
+    (b) the same 10 steps dense;
+    (c) (a) resumed from its step-5 checkpoint (saving nothing);
+    (d) 5 steps of (a) under each planted fault;
+    then 10 steps on one fixed batch and a profiled window. The kernels
+    are bitwise equal to their plain versions and the algorithms are
+    deterministic, so (a), (p) and (c) must agree bit for bit."""
+    cfg = dict(gpt.BASE_CONFIG, moe_experts=MOE_EXPERTS, moe_every=2)
+    per_step = moe_launches_per_step(cfg, remat=True)
+    with _deterministic(), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_moe_") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in "ac"}
+        routes = {p: [] for p in MOE_PATHS}
+        variants = {"sound": ("auto", functools.partial(
+            _routes_logged, routes["kernels"], "kernels"))}
+        for fault in PLANTED_MOE:
+            variants[fault] = ("auto", functools.partial(
+                _moe_path, "kernels", fault))
+        grad_check = _grad_check(
+            _moe_env(), {p: ("auto", functools.partial(_routes_logged,
+                                                       routes[p], p))
+                         for p in ("dense", "plain")}, variants)
+        routing = {ref: _routing_parts(routes["kernels"], routes[ref],
+                                       moe_layers(cfg))
+                   for ref in ("dense", "plain")}
+        del routes
+        torch.cuda.reset_peak_memory_stats()
+        rec_a, out_a, wall_a, launches_a = _gpt_moe_run("kernels",
+                                                        dirs["a"])
+        peak_a = torch.cuda.max_memory_allocated()
+        rec_p, _, _, launches_p = _gpt_moe_run("plain", "")
+        torch.cuda.reset_peak_memory_stats()
+        rec_b, _, wall_b, launches_b = _gpt_moe_run("dense", "")
+        peak_b = torch.cuda.max_memory_allocated()
+        saved = "step_%012d" % MOE_SAVE_AT
+        os.makedirs(dirs["c"])
+        shutil.copytree(os.path.join(dirs["a"], saved),
+                        os.path.join(dirs["c"], saved),
+                        copy_function=os.link)
+        rec_c, out_c, _, launches_c = _gpt_moe_run("kernels", dirs["c"],
+                                                   every=10 * MOE_STEPS)
+        planted_losses = {
+            fault: _gpt_moe_run("kernels", "", fault=fault,
+                                total=MOE_PLANTED_STEPS)[0].host_losses()
+            for fault in PLANTED_MOE}
+        fixed = gpt.synthetic_batch(
+            torch.Generator(device=DEVICE).manual_seed(1), GPT_BATCH,
+            GPT_SEQ, cfg["vocab_size"])
+        rec_f = _gpt_moe_run("kernels", "",
+                             make_batch=lambda gen, step: fixed,
+                             every=10 * MOE_STEPS)[0]
+        with _moe_path("kernels"):
+            profile_out = _gpt_profile(
+                _moe_env(), FLASH_PROFILE_NAMES + MOE_PROFILE_NAMES)
+    la, lp, lb, lc, lf = (r.host_losses()
+                          for r in (rec_a, rec_p, rec_b, rec_c, rec_f))
+    aux = torch.stack(rec_a.moe_aux).cpu().tolist()
+
+    def max_rel(losses, ref) -> float:
+        """The largest |loss - ref| / ref over the steps both have."""
+        return max(abs(x - y) / abs(y) for x, y in zip(losses, ref))
+
+    # steps 2-4, forward to forward: after the first step's warm-up and
+    # before the step-5 save; steps 6-9 carry the writer
+    fused_ms, dense_ms = (rec_a.forward_gaps_ms(2, 4),
+                          rec_b.forward_gaps_ms(2, 4))
+    median_s = statistics.median(fused_ms) / 1e3
+    busy_ms = profile_out["device_busy_ms_per_step"]
+    kernel_ms = profile_out["kernel_ms_per_step"]
+    model_flops = profile_out["counted_flops_per_step"] + _attention_flops(cfg)
+    expected = {k: n * MOE_STEPS for k, n in per_step.items()}
+    out = {
+        "phase": "train_gpt_moe", "card": smi,
+        "config": {"model": "gpt BASE_CONFIG + moe_experts=8, moe_every=2",
+                   "batch": GPT_BATCH, "seq": GPT_SEQ, "steps": MOE_STEPS,
+                   "compute": "bf16", "params": "fp32",
+                   "optimizer": "adamw cosine(3e-4)", "remat": True,
+                   "ce_chunk": 1024, "capacity_factor": 1.25,
+                   "deterministic_algorithms": True},
+        "losses": {"kernels": la, "plain": lp, "dense": lb,
+                   "resumed_from_5": lc, "fixed_batch": lf,
+                   "planted": planted_losses},
+        "moe_aux_per_step": aux,
+        "max_abs_loss_diff_kernels_vs_plain": max(
+            abs(x - y) for x, y in zip(la, lp)),
+        "max_rel_loss_diff_kernels_vs_dense": max_rel(la, lb),
+        "grad_check_step_0": grad_check,
+        "routing_step_0": dict(routing, tokens=GPT_BATCH * GPT_SEQ),
+        "planted": {f: {"max_rel_loss_diff_vs_plain": max_rel(
+                            planted_losses[f], lp),
+                        "max_rel_loss_diff_vs_dense": max_rel(
+                            planted_losses[f], lb)}
+                    for f in PLANTED_MOE},
+        "tolerance": {"kernels_vs_plain": "bitwise",
+                      "loss_rtol_vs_dense": GPT_MOE_LOSS_RTOL,
+                      "grad_rtol_vs_dense": GPT_MOE_GRAD_RTOL},
+        "max_abs_loss_diff_resumed": max(
+            abs(x - y) for x, y in zip(la[MOE_SAVE_AT:], lc)),
+        "launches": {"kernels": launches_a, "plain": launches_p,
+                     "dense": launches_b, "resumed": launches_c,
+                     "expected_kernels": expected, "per_step": per_step},
+        "resume_steps": out_c.get("resume_steps"),
+        "step_ms_steps_2_4": {"kernels": fused_ms, "dense": dense_ms},
+        "step_ms_median": 1e3 * median_s,
+        "dense_step_ms_median": statistics.median(dense_ms),
+        "step_ms_steps_6_9": {"kernels": rec_a.forward_gaps_ms(6, 9),
+                              "dense": rec_b.forward_gaps_ms(6, 9)},
+        "tokens_per_s": GPT_BATCH * GPT_SEQ / median_s,
+        "optimizer_ms_per_step": statistics.mean(
+            a.elapsed_time(b) for a, b in rec_a.updates[1:4]),
+        "wall_s": {"kernels": wall_a, "dense": wall_b},
+        "peak_gb": {"kernels": peak_a / 1e9, "dense": peak_b / 1e9},
+        "host_stages_kernels": out_a["host_stages"],
+        "profile": profile_out,
+        "idle_share_steps_2_4": 1.0 - busy_ms / (1e3 * median_s),
+        "moe_kernel_ms_per_step": {k: kernel_ms[k]
+                                   for k in MOE_PROFILE_NAMES},
+        "model_flops_per_step": model_flops,
+        "mfu_bf16": model_flops / median_s / BF16_FLOPS,
+    }
+    emit(out)
+    problems = []
+    if out["max_abs_loss_diff_kernels_vs_plain"] != 0.0:
+        problems.append("the kernel run and the plain run part by %g "
+                        "(stated tolerance: bitwise)"
+                        % out["max_abs_loss_diff_kernels_vs_plain"])
+    for fault in PLANTED_MOE:
+        if planted_losses[fault] == lp[:MOE_PLANTED_STEPS]:
+            problems.append("the loss gate passes planted fault %s" % fault)
+    if not out["max_rel_loss_diff_kernels_vs_dense"] <= GPT_MOE_LOSS_RTOL:
+        problems.append("kernel and dense losses part by %g relative > %g"
+                        % (out["max_rel_loss_diff_kernels_vs_dense"],
+                           GPT_MOE_LOSS_RTOL))
+    sound = grad_check["plain"]["sound"]
+    if sound["max_rel_diff"] != 0.0:
+        problems.append("step-0 gradients of the kernels and of the plain "
+                        "versions part by %g relative at %s (stated "
+                        "tolerance: bitwise)" % (sound["max_rel_diff"],
+                                                 sound["leaf"]))
+    sound = grad_check["dense"]["sound"]
+    if not sound["max_rel_diff"] <= GPT_MOE_GRAD_RTOL:
+        problems.append("step-0 gradients of the kernels and the dense "
+                        "formulation part by %g relative > %g at %s"
+                        % (sound["max_rel_diff"], GPT_MOE_GRAD_RTOL,
+                           sound["leaf"]))
+    for fault in PLANTED_MOE:
+        for ref in ("dense", "plain"):
+            if not grad_check[ref][fault]["max_rel_diff"] > GPT_MOE_GRAD_RTOL:
+                problems.append("the gradient gate against %s passes "
+                                "planted fault %s" % (ref, fault))
+    if any(routing["plain"]["tokens_apart"]):
+        problems.append("the kernels and the plain versions route %r "
+                        "tokens apart at step 0"
+                        % routing["plain"]["tokens_apart"])
+    if routing["dense"]["tokens_apart"][0]:
+        problems.append("the first MoE layer routes %d tokens apart under "
+                        "dense and kernels, from the same input"
+                        % routing["dense"]["tokens_apart"][0])
+    if not all(r["recompute_equal"] for r in routing.values()):
+        problems.append("remat's recompute routed a token otherwise than "
+                        "its forward")
+    if (len(lc) != MOE_STEPS - MOE_SAVE_AT
+            or out["max_abs_loss_diff_resumed"] != 0.0):
+        problems.append("the resumed run does not reproduce steps %d-%d "
+                        "bitwise (%d losses, off by %g)"
+                        % (MOE_SAVE_AT + 1, MOE_STEPS, len(lc),
+                           out["max_abs_loss_diff_resumed"]))
+    if out_c.get("resume_steps") != [MOE_SAVE_AT]:
+        problems.append("the resumed run restored %r, not step %d"
+                        % (out_c.get("resume_steps"), MOE_SAVE_AT))
+    if launches_a != expected:
+        problems.append("MoE launches %r, expected %r"
+                        % (launches_a, expected))
+    if any(launches_b.values()) or any(launches_p.values()):
+        problems.append("the dense or plain run launched %r, %r"
+                        % (launches_b, launches_p))
+    if launches_c != {k: n * (MOE_STEPS - MOE_SAVE_AT)
+                      for k, n in per_step.items()}:
+        problems.append("the resumed run launched %r, expected %r per step"
+                        % (launches_c, per_step))
+    if len(la) != MOE_STEPS or len(lb) != MOE_STEPS or \
+            out_a["steps"] != MOE_STEPS:
+        problems.append("runs did not take %d steps" % MOE_STEPS)
+    if not all(np.isfinite(x) for x in la + lp + lb + lc + lf):
+        problems.append("a loss is not finite")
+    if not all(np.isfinite(x) and x > 0 for x in aux):
+        problems.append("the MoE aux loss is not finite and positive: %r"
+                        % aux)
+    if not lf[-1] < lf[0]:
+        problems.append("%d steps on one batch did not lower the loss "
+                        "(%g -> %g)" % (MOE_STEPS, lf[0], lf[-1]))
+    if problems:
+        fail("train_gpt_moe: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train_bert: BERT-base (examples/train_bert) and BERT-base-MoE
+# ---------------------------------------------------------------------------
+
+#: |loss(kernels) - loss(dense)| / loss allowed at every step of the
+#: BERT-base-MoE runs: the GPT-MoE runs' gate, for the same reason; a
+#: faulty kernel is caught by the run on the plain versions, which must
+#: agree with the kernel run bit for bit
+BERT_MOE_LOSS_RTOL = GPT_MOE_LOSS_RTOL
+
+
+def _bert_moe_job() -> TrainJob:
+    """BERT-base with 8 experts on every second layer at the JAX bench's
+    setup (bench.py ``_moe_bench``): batch 16 x 512, ``adamw(1e-4,
+    wd_mask=make_wd_mask(params))``, grad clip 1.0, ``bert.loss_fn``'s
+    defaults (no remat, bf16)."""
+    cfg = dict(bert.BASE_CONFIG, moe_experts=MOE_EXPERTS, moe_every=2)
+    mask = optim.make_wd_mask(bert.init(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg))
+    return TrainJob(
+        init_params=lambda gen: bert.init(gen, cfg), loss_fn=bert.loss_fn,
+        optimizer=optim.adamw(1e-4, wd_mask=mask),
+        make_batch=lambda gen, step: bert.synthetic_batch(
+            gen, BERT_MOE_BATCH, BERT_SEQ, cfg["vocab_size"]),
+        grad_clip=1.0, total_steps=BERT_MOE_STEPS)
+
+
+def phase_train_bert(smi: str) -> dict:
+    """BERT-base through examples/train_bert.py's job (batch 64 x 512, bf16
+    on fp32 params, adamw + cosine(1e-4), wd 0.01, grad clip 1.0, remat;
+    the einsum attention: no kernel): BERT_STEPS steps and
+    BERT_FIXED_STEPS on one fixed batch, and a profiled window. Then
+    BERT-base-MoE at the JAX bench's setup for BERT_MOE_STEPS steps on
+    the kernels, on their plain versions run on the card (losses bitwise
+    equal to the kernels') and on the dense formulation. Deterministic
+    algorithms on."""
+    env = {"TPUJOB_BATCH": str(BERT_BATCH), "TPUJOB_SEQ": str(BERT_SEQ),
+           "TPUJOB_STEPS": str(BERT_STEPS)}
+    cfg = dict(bert.BASE_CONFIG, moe_experts=MOE_EXPERTS, moe_every=2)
+    per_step = moe_launches_per_step(cfg, remat=False)
+    with _deterministic():
+        torch.cuda.reset_peak_memory_stats()
+        rec_d, _, wall_d = _recorded_run(train_bert.make_job(env), "")
+        peak_d = torch.cuda.max_memory_allocated()
+        fixed = bert.synthetic_batch(
+            torch.Generator(device=DEVICE).manual_seed(1), BERT_BATCH,
+            BERT_SEQ, bert.BASE_CONFIG["vocab_size"])
+        rec_f, _, _ = _recorded_run(
+            train_bert.make_job(dict(env, TPUJOB_STEPS=str(BERT_FIXED_STEPS))),
+            "", make_batch=lambda gen, step: fixed)
+        job = train_bert.make_job(env)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        profile_out = _step_profile(job, job.init_params(gen), fixed,
+                                    warm=1, steps=2)
+        moe_job = _bert_moe_job()
+        moe_runs = {}
+        for path in MOE_PATHS:
+            launches = _zero(moe.moe_apply_fused.launches)
+            torch.cuda.reset_peak_memory_stats()
+            with _moe_path(path):
+                rec, _, wall = _recorded_run(moe_job, "")
+            moe_runs[path] = {
+                "rec": rec, "wall_s": wall, "launches": dict(launches),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    ld, lf = rec_d.host_losses(), rec_f.host_losses()
+    base_ms = rec_d.forward_gaps_ms(2, BERT_STEPS - 1)
+    lm = {k: r["rec"].host_losses() for k, r in moe_runs.items()}
+    moe_ms = {k: r["rec"].forward_gaps_ms(2, BERT_MOE_STEPS - 1)
+              for k, r in moe_runs.items()}
+    max_rel = max(abs(x - y) / abs(y) for x, y in zip(lm["kernels"],
+                                                      lm["dense"]))
+    plain_diff = max(abs(x - y) for x, y in zip(lm["kernels"], lm["plain"]))
+    expected = {k: n * BERT_MOE_STEPS for k, n in per_step.items()}
+    median_ms = statistics.median(base_ms)
+    out = {
+        "phase": "train_bert", "card": smi,
+        "bert_base": {
+            "config": {"model": "bert BASE_CONFIG", "batch": BERT_BATCH,
+                       "seq": BERT_SEQ, "steps": BERT_STEPS,
+                       "compute": "bf16", "params": "fp32",
+                       "optimizer": "adamw cosine(1e-4)", "remat": True,
+                       "attention": "einsum (masked)"},
+            "losses": ld, "fixed_batch_losses": lf,
+            "step_ms": base_ms, "step_ms_median": median_ms,
+            "tokens_per_s": BERT_BATCH * BERT_SEQ / median_ms * 1e3,
+            "wall_s": wall_d, "peak_gb": peak_d / 1e9,
+            "profile": profile_out,
+            "idle_share": 1.0 - profile_out["device_busy_ms_per_step"]
+            / median_ms},
+        "bert_base_moe": {
+            "config": {"model": "bert BASE_CONFIG + moe_experts=8, "
+                                "moe_every=2", "batch": BERT_MOE_BATCH,
+                       "seq": BERT_SEQ, "steps": BERT_MOE_STEPS,
+                       "optimizer": "adamw(1e-4, wd_mask)", "remat": False},
+            "losses": lm, "max_rel_loss_diff_kernels_vs_dense": max_rel,
+            "max_abs_loss_diff_kernels_vs_plain": plain_diff,
+            "tolerance": {"kernels_vs_plain": "bitwise",
+                          "loss_rtol_vs_dense": BERT_MOE_LOSS_RTOL},
+            "moe_aux_per_step": torch.stack(
+                moe_runs["kernels"]["rec"].moe_aux).cpu().tolist(),
+            "step_ms": moe_ms,
+            "step_ms_median": {k: statistics.median(v)
+                               for k, v in moe_ms.items()},
+            "launches": {k: r["launches"] for k, r in moe_runs.items()},
+            "expected_kernels": expected, "per_step": per_step,
+            "peak_gb": {k: r["peak_gb"] for k, r in moe_runs.items()},
+            "wall_s": {k: r["wall_s"] for k, r in moe_runs.items()}},
+    }
+    emit(out)
+    problems = []
+    if not all(np.isfinite(x) for x in ld + lf + sum(lm.values(), [])):
+        problems.append("a loss is not finite")
+    if len(ld) != BERT_STEPS or any(len(v) != BERT_MOE_STEPS
+                                    for v in lm.values()):
+        problems.append("runs did not take their steps")
+    if not lf[-1] < lf[0]:
+        problems.append("%d steps on one batch did not lower the loss "
+                        "(%g -> %g)" % (BERT_FIXED_STEPS, lf[0], lf[-1]))
+    if plain_diff != 0.0:
+        problems.append("the BERT-MoE kernel run and the plain run part by "
+                        "%g (stated tolerance: bitwise)" % plain_diff)
+    if not max_rel <= BERT_MOE_LOSS_RTOL:
+        problems.append("BERT-MoE kernel and dense losses part by %g "
+                        "relative > %g" % (max_rel, BERT_MOE_LOSS_RTOL))
+    if moe_runs["kernels"]["launches"] != expected:
+        problems.append("BERT-MoE launches %r, expected %r"
+                        % (moe_runs["kernels"]["launches"], expected))
+    for path in ("plain", "dense"):
+        if any(moe_runs[path]["launches"].values()):
+            problems.append("the %s BERT-MoE run launched %r"
+                            % (path, moe_runs[path]["launches"]))
+    if problems:
+        fail("train_bert: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1260,12 +2013,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("chip_smoke: TF32 off for matmul and cuDNN (fp32 throughout)",
           flush=True)
+    t0 = time.perf_counter()
     env = phase_env()
     phase_build()
     kernels = phase_kernels(hbm_rate(env["device"]))
     serve = phase_serve(env["nvidia_smi"])
     train = phase_train(env["nvidia_smi"])
     train_gpt_out = phase_train_gpt(env["nvidia_smi"])
+    moe_out = phase_train_gpt_moe(env["nvidia_smi"])
+    bert_out = phase_train_bert(env["nvidia_smi"])
     full = kernels["kernels"][0]["shapes"][-1]
     sgd = kernels["kernels"][1]
     flash = kernels["flash"]
@@ -1284,6 +2040,22 @@ def main() -> int:
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    moe_rows = []
+    for name, key, replaces in MOE_KERNELS:
+        row = kernels["moe"]["timing"][key]
+        moe_rows.append({
+            "name": name, "route": "cuda", "source": MOE_SOURCE,
+            "replaces": replaces,
+            "launches": moe_out["launches"]["kernels"][key],
+            "max_abs_err": max(r["max_abs_err"]
+                               for case in kernels["moe"]["checks"].values()
+                               for n, r in case.items()
+                               if isinstance(r, dict) and n.startswith(key)),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    emit({"phase": "summary", "seconds": time.perf_counter() - t0,
+          "bert_moe_launches": bert_out["bert_base_moe"]["launches"]})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -1299,7 +2071,7 @@ def main() -> int:
         "max_abs_err": sgd["max_abs_err"], "ms": sgd["kernel_ms"],
         "plain_ms": sgd["plain_ms"], "bound_ms": sgd["bound_ms"],
         "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"]}]
-        + flash_rows})
+        + flash_rows + moe_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,10 +12,15 @@ The counterpart of ``examples/train_gpt.py``: the same env vars
 ``attn_impl="auto"``: the flash-attention CUDA kernels. Synthetic batches
 are drawn on the card from ``(seed, step)``.
 
+``TPUJOB_MOE_EXPERTS=N`` makes every second FFN a switch-MoE block of N
+experts (``moe_every=2``); ``TPUJOB_MOE_FUSED=1``, read when the loss
+runs, takes the MoE dispatch/combine CUDA kernels in place of the dense
+einsum formulation.
+
 Not ported yet: ``TPUJOB_SP > 1`` (ring attention over a sequence mesh)
-and ``TPUJOB_MOE_EXPERTS > 0``; both raise. The train step is
-single-device, so the reference's sharding rules and mesh axes are not
-carried.
+raises. The train step is single-device, so the reference's sharding
+rules (``gpt_rules``, and ``moe_rules``' expert axis) and mesh axes are
+not carried.
 """
 
 import logging
@@ -41,10 +46,6 @@ def make_job(env: Optional[Mapping[str, str]] = None,
         raise NotImplementedError(
             "TPUJOB_SP>1 (sequence-parallel ring attention) is not ported "
             "yet; the port's train step is single-device")
-    if _int(env, "TPUJOB_MOE_EXPERTS", 0) > 0:
-        raise NotImplementedError(
-            "TPUJOB_MOE_EXPERTS>0 is not ported yet: the port has no MoE "
-            "layers")
     batch = _int(env, "TPUJOB_BATCH", 16)
     seq = _int(env, "TPUJOB_SEQ", 1024)
     steps = _int(env, "TPUJOB_STEPS", 100)
@@ -54,6 +55,9 @@ def make_job(env: Optional[Mapping[str, str]] = None,
                       ("TPUJOB_VOCAB", "vocab_size")):
         if env.get(knob):
             cfg[key] = int(env[knob])
+    experts = _int(env, "TPUJOB_MOE_EXPERTS", 0)
+    if experts:
+        cfg.update(moe_experts=experts, moe_every=2)
     # stream tokens through the LM head (never materialise [B, S, V] fp32
     # logits); 0 restores the dense path
     ce_chunk = _int(env, "TPUJOB_CE_CHUNK", 1024)

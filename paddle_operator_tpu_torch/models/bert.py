@@ -1,0 +1,188 @@
+"""BERT encoder with a masked-LM head, the counterpart of
+``paddle_operator_tpu/models/bert.py``: forward, training loss and
+synthetic batches.
+
+Post-LN encoder layers on the port's ``nn`` layers. The parameter tree has
+the JAX package's keys and layouts (``embed.{tok, pos, type, ln}``,
+``layers[i].{attn, ln1, ln2, mlp.{fc1, fc2} | moe}``, ``pooler``,
+``mlm.{transform, ln, decoder}``), so a tree initialised by the JAX
+package and converted by :mod:`..bridge` runs here unchanged. Compute is
+in ``dtype`` (bf16 by default) on fp32 parameters; the MLM decoder runs in
+fp32, as the reference's.
+
+Attention keeps the reference's dispatch: ``encode`` turns an
+``attention_mask`` into a mask for ``nn.mha``, and a mask takes the einsum
+path, so BERT as :func:`synthetic_batch` feeds it (an all-ones mask) runs
+no attention kernel. With ``moe_experts > 0`` every ``moe_every``-th FFN
+is a switch-MoE block (:mod:`..ops.moe`). ``remat`` recomputes each layer
+in the backward (non-reentrant ``torch.utils.checkpoint``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..ops import nn
+from ..ops.moe import moe_apply, moe_init
+
+F32 = torch.float32
+
+BASE_CONFIG = dict(
+    vocab_size=30522, hidden=768, layers=12, heads=12, mlp_dim=3072,
+    max_seq=512, type_vocab=2, moe_experts=0, moe_every=2,
+)
+
+TINY_CONFIG = dict(
+    vocab_size=1024, hidden=128, layers=2, heads=4, mlp_dim=256,
+    max_seq=128, type_vocab=2, moe_experts=0, moe_every=2,
+)
+
+TINY_MOE_CONFIG = dict(TINY_CONFIG, moe_experts=4, moe_every=1)
+
+
+def init(generator: torch.Generator, config: Optional[dict] = None) -> Dict:
+    """Random parameters drawn from ``generator``, on its device. The
+    numbers differ from the JAX package's for the same seed; tests that
+    compare the two start from a JAX-initialised tree."""
+    cfg = dict(BASE_CONFIG, **(config or {}))
+    h, mlp = cfg["hidden"], cfg["mlp_dim"]
+    dev = generator.device
+    params: Dict = {
+        "embed": {
+            "tok": nn.embedding_init(generator, cfg["vocab_size"], h),
+            "pos": nn.embedding_init(generator, cfg["max_seq"], h),
+            "type": nn.embedding_init(generator, cfg["type_vocab"], h),
+            "ln": nn.layernorm_init(h, dev),
+        },
+        "layers": [],
+        "pooler": nn.dense_init(generator, h, h),
+        "mlm": {
+            "transform": nn.dense_init(generator, h, h),
+            "ln": nn.layernorm_init(h, dev),
+            "decoder": nn.dense_init(generator, h, cfg["vocab_size"]),
+        },
+    }
+    for li in range(cfg["layers"]):
+        layer = {
+            "attn": nn.mha_init(generator, h, cfg["heads"]),
+            "ln1": nn.layernorm_init(h, dev),
+            "ln2": nn.layernorm_init(h, dev),
+        }
+        if cfg["moe_experts"] and li % cfg["moe_every"] == 0:
+            layer["moe"] = moe_init(generator, h, mlp, cfg["moe_experts"])
+        else:
+            layer["mlp"] = {"fc1": nn.dense_init(generator, h, mlp),
+                            "fc2": nn.dense_init(generator, mlp, h)}
+        params["layers"].append(layer)
+    return params
+
+
+def _encoder_layer(layer: Dict, x: torch.Tensor,
+                   mask: Optional[torch.Tensor], dtype: torch.dtype,
+                   attn_impl: Any = "auto"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Post-LN encoder layer: ln1(x + attn(x)), then ln2(x + ffn(x)).
+    Returns ``(x, aux)``, aux the MoE load-balancing loss (0 for a dense
+    FFN)."""
+    y = nn.mha(layer["attn"], x, mask, dtype=dtype, impl=attn_impl)
+    x = nn.layernorm(layer["ln1"], x + y, dtype=dtype)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if "moe" in layer:
+        y, moe_aux = moe_apply(layer["moe"], x, dtype=dtype)
+        aux = aux + moe_aux["moe_aux_loss"]
+    else:
+        y = nn.dense(layer["mlp"]["fc1"], x, dtype=dtype)
+        y = nn.gelu(y)
+        y = nn.dense(layer["mlp"]["fc2"], y, dtype=dtype)
+    return nn.layernorm(layer["ln2"], x + y, dtype=dtype), aux
+
+
+def encode(params: Dict, input_ids: torch.Tensor,
+           type_ids: Optional[torch.Tensor] = None,
+           attention_mask: Optional[torch.Tensor] = None,
+           dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+           attn_impl: Any = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """input_ids ``[B, S]`` -> (hidden states ``[B, S, H]`` in ``dtype``,
+    the layers' MoE aux loss summed in fp32)."""
+    _, s = input_ids.shape
+    x = nn.embedding(params["embed"]["tok"], input_ids, dtype)
+    pos = torch.arange(s, device=input_ids.device)[None, :]
+    x = x + nn.embedding(params["embed"]["pos"], pos, dtype)
+    if type_ids is None:
+        type_ids = torch.zeros_like(input_ids)
+    x = x + nn.embedding(params["embed"]["type"], type_ids, dtype)
+    x = nn.layernorm(params["embed"]["ln"], x, dtype=dtype)
+
+    mask = None
+    if attention_mask is not None:
+        mask = attention_mask[:, None, None, :].bool()
+
+    aux = torch.zeros((), dtype=F32, device=input_ids.device)
+    for layer in params["layers"]:
+        if remat:
+            x, layer_aux = checkpoint(_encoder_layer, layer, x, mask, dtype,
+                                      attn_impl, use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            x, layer_aux = _encoder_layer(layer, x, mask, dtype, attn_impl)
+        aux = aux + layer_aux
+    return x, aux
+
+
+def mlm_logits(params: Dict, hidden: torch.Tensor,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The MLM head: transform, gelu, LayerNorm, then the decoder in fp32
+    -> ``[B, S, V]`` fp32 logits."""
+    y = nn.dense(params["mlm"]["transform"], hidden, dtype)
+    y = nn.gelu(y)
+    y = nn.layernorm(params["mlm"]["ln"], y, dtype=dtype)
+    return nn.dense(params["mlm"]["decoder"], y, dtype=F32)
+
+
+def loss_fn(params: Dict, batch: Dict, train: bool = True,
+            dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+            attn_impl: Any = "auto", moe_aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Masked-LM loss. batch = {input_ids, labels, [type_ids,
+    attention_mask, loss_mask]}; labels ``[B, S]``, positions with
+    ``loss_mask`` 0 ignored. Returns ``(loss, {"accuracy", "moe_aux"})``;
+    the loss includes ``moe_aux_weight * moe_aux``."""
+    hidden, moe_aux = encode(params, batch["input_ids"], batch.get("type_ids"),
+                             batch.get("attention_mask"), dtype=dtype,
+                             remat=remat, attn_impl=attn_impl)
+    logits = mlm_logits(params, hidden, dtype)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    labels = batch["labels"].long()
+    picked = logp.gather(-1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(labels.shape, dtype=F32, device=labels.device)
+            if mask is None else mask.to(F32))
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = -torch.sum(picked * mask) / denom
+    loss = loss + moe_aux_weight * moe_aux
+    acc = torch.sum((logits.argmax(dim=-1) == labels).to(F32) * mask) / denom
+    return loss, {"accuracy": acc, "moe_aux": moe_aux}
+
+
+def synthetic_batch(generator: torch.Generator, batch_size: int,
+                    seq_len: int = 128, vocab_size: int = 30522,
+                    mask_rate: float = 0.15) -> Dict:
+    """Uniform random ids and labels ``[B, S]`` (int64), a ``loss_mask``
+    with about ``mask_rate`` of the positions on (fp32) and an all-ones
+    int32 ``attention_mask``, drawn from ``generator`` on its device."""
+    dev = generator.device
+    shape = (batch_size, seq_len)
+    ids = torch.randint(0, vocab_size, shape, generator=generator,
+                        device=dev)
+    labels = torch.randint(0, vocab_size, shape, generator=generator,
+                           device=dev)
+    loss_mask = torch.rand(shape, generator=generator, device=dev) < mask_rate
+    return {
+        "input_ids": ids,
+        "labels": labels,
+        "loss_mask": loss_mask.to(F32),
+        "attention_mask": torch.ones(shape, dtype=torch.int32, device=dev),
+    }

@@ -12,9 +12,10 @@ with "auto" runs the flash kernels for CUDA tensors. ``remat`` recomputes
 each block in the backward (``torch.utils.checkpoint``, non-reentrant, so
 ``torch.autograd.grad`` works through it).
 
-MoE configs are refused: the port has no MoE layers yet, so the
-reference's MoE aux loss is always 0 here. ``encode`` and ``apply`` return
-the hidden states and the logits alone, without that aux term.
+With ``moe_experts > 0`` every ``moe_every``-th FFN (layers ``li %
+moe_every == 0``) is a switch-MoE block, ``layers[i].moe.{router, wi,
+wo}`` (:mod:`..ops.moe`); ``encode`` and ``apply`` return the layers'
+load-balancing loss beside their output, as the reference's do.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import nn
+from ..ops.moe import moe_apply, moe_init
 
 F32 = torch.float32
 
@@ -38,15 +40,14 @@ TINY_CONFIG = dict(
     max_seq=256, moe_experts=0, moe_every=2,
 )
 
+TINY_MOE_CONFIG = dict(TINY_CONFIG, moe_experts=4, moe_every=1)
+
 
 def init(generator: torch.Generator, config: Optional[dict] = None) -> Dict:
     """Random parameters drawn from ``generator``, on its device. The
     numbers differ from the JAX package's for the same seed; tests that
     compare the two start from a JAX-initialised tree."""
     cfg = dict(BASE_CONFIG, **(config or {}))
-    if cfg["moe_experts"]:
-        raise ValueError("the torch port has no MoE layers (moe_experts=%d)"
-                         % cfg["moe_experts"])
     h, mlp = cfg["hidden"], cfg["mlp_dim"]
     dev = generator.device
     params: Dict = {
@@ -56,59 +57,74 @@ def init(generator: torch.Generator, config: Optional[dict] = None) -> Dict:
         "lm_head": nn.dense_init(generator, h, cfg["vocab_size"],
                                  use_bias=False),
     }
-    for _ in range(cfg["layers"]):
-        params["layers"].append({
+    for li in range(cfg["layers"]):
+        layer = {
             "ln1": nn.layernorm_init(h, dev),
             "attn": nn.mha_init(generator, h, cfg["heads"]),
             "ln2": nn.layernorm_init(h, dev),
-            "mlp": {"fc1": nn.dense_init(generator, h, mlp),
-                    "fc2": nn.dense_init(generator, mlp, h)},
-        })
+        }
+        if cfg["moe_experts"] and li % cfg["moe_every"] == 0:
+            layer["moe"] = moe_init(generator, h, mlp, cfg["moe_experts"])
+        else:
+            layer["mlp"] = {"fc1": nn.dense_init(generator, h, mlp),
+                            "fc2": nn.dense_init(generator, mlp, h)}
+        params["layers"].append(layer)
     return params
 
 
 def _block(layer: Dict, x: torch.Tensor, dtype: torch.dtype, attn_impl: Any,
-           positions: Optional[torch.Tensor]) -> torch.Tensor:
-    """Pre-LN decoder block: x + attn(ln1 x); x + ffn(ln2 x)."""
-    if "moe" in layer:
-        raise ValueError("the torch port has no MoE layers")
+           positions: Optional[torch.Tensor]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-LN decoder block: x + attn(ln1 x); x + ffn(ln2 x). Returns
+    ``(x, aux)``, aux the MoE load-balancing loss (0 for a dense FFN)."""
     causal = not callable(attn_impl)  # callables (ring/ulysses) own masking
     y = nn.mha(layer["attn"], nn.layernorm(layer["ln1"], x, dtype=dtype),
                dtype=dtype, impl=attn_impl, causal=causal, use_rope=True,
                positions=positions)
     x = x + y
     z = nn.layernorm(layer["ln2"], x, dtype=dtype)
-    z = nn.dense(layer["mlp"]["fc1"], z, dtype=dtype)
-    z = nn.gelu(z)
-    z = nn.dense(layer["mlp"]["fc2"], z, dtype=dtype)
-    return x + z
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if "moe" in layer:
+        z, moe_aux = moe_apply(layer["moe"], z, dtype=dtype)
+        aux = aux + moe_aux["moe_aux_loss"]
+    else:
+        z = nn.dense(layer["mlp"]["fc1"], z, dtype=dtype)
+        z = nn.gelu(z)
+        z = nn.dense(layer["mlp"]["fc2"], z, dtype=dtype)
+    return x + z, aux
 
 
 def encode(params: Dict, input_ids: torch.Tensor,
            dtype: torch.dtype = torch.bfloat16, remat: bool = False,
            attn_impl: Any = "auto",
-           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Backbone up to (but excluding) the LM head: [B, S] ids -> [B, S, D]
-    final-LN hidden states in ``dtype``."""
+           positions: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone up to (but excluding) the LM head: [B, S] ids -> ([B, S,
+    D] final-LN hidden states in ``dtype``, the layers' MoE aux loss summed
+    in fp32)."""
     x = nn.embedding(params["embed"]["tok"], input_ids, dtype)
+    aux = torch.zeros((), dtype=F32, device=input_ids.device)
     for layer in params["layers"]:
         if remat:
-            x = checkpoint(_block, layer, x, dtype, attn_impl, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, layer_aux = checkpoint(_block, layer, x, dtype, attn_impl,
+                                      positions, use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
-            x = _block(layer, x, dtype, attn_impl, positions)
-    return nn.layernorm(params["final_ln"], x, dtype=dtype)
+            x, layer_aux = _block(layer, x, dtype, attn_impl, positions)
+        aux = aux + layer_aux
+    return nn.layernorm(params["final_ln"], x, dtype=dtype), aux
 
 
 def apply(params: Dict, input_ids: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16, remat: bool = False,
           attn_impl: Any = "auto",
-          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """input_ids: [B, S] -> logits [B, S, V] in fp32 (the LM head runs in
-    fp32, as the reference's)."""
-    x = encode(params, input_ids, dtype=dtype, remat=remat,
-               attn_impl=attn_impl, positions=positions)
-    return nn.dense(params["lm_head"], x, dtype=F32)
+          positions: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """input_ids: [B, S] -> (logits [B, S, V] in fp32 (the LM head runs in
+    fp32, as the reference's), MoE aux loss)."""
+    x, aux = encode(params, input_ids, dtype=dtype, remat=remat,
+                    attn_impl=attn_impl, positions=positions)
+    return nn.dense(params["lm_head"], x, dtype=F32), aux
 
 
 def loss_fn(params: Dict, batch: Dict, train: bool = True,
@@ -120,26 +136,26 @@ def loss_fn(params: Dict, batch: Dict, train: bool = True,
     dropped) and a ``loss_mask`` applies at the label position.
     ``ce_chunk > 0`` streams the LM head through
     :func:`..ops.nn.chunked_lm_xent` (no ``[B, S, V]`` logits); 0 takes
-    the dense fp32 head. Returns ``(loss, {"accuracy", "moe_aux"})`` with
-    ``moe_aux`` = 0 (no MoE layers)."""
+    the dense fp32 head. Returns ``(loss, {"accuracy", "moe_aux"})``; the
+    loss includes ``moe_aux_weight * moe_aux``."""
     ids = batch["input_ids"]
     labels = ids[:, 1:].long()
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=F32, device=ids.device)
             if mask is None else mask[:, 1:].to(F32))
-    moe_aux = torch.zeros((), dtype=F32, device=ids.device)
 
     if ce_chunk:
-        hidden = encode(params, ids, dtype=dtype, remat=remat,
-                        attn_impl=attn_impl)
+        hidden, moe_aux = encode(params, ids, dtype=dtype, remat=remat,
+                                 attn_impl=attn_impl)
         loss, acc = nn.chunked_lm_xent(params["lm_head"], hidden[:, :-1],
                                        labels, mask=mask, chunk=ce_chunk,
                                        dtype=dtype)
         loss = loss + moe_aux_weight * moe_aux
         return loss, {"accuracy": acc, "moe_aux": moe_aux}
 
-    logits = apply(params, ids, dtype=dtype, remat=remat,
-                   attn_impl=attn_impl)[:, :-1]
+    logits, moe_aux = apply(params, ids, dtype=dtype, remat=remat,
+                            attn_impl=attn_impl)
+    logits = logits[:, :-1]
     logp = torch.log_softmax(logits, dim=-1)
     picked = logp.gather(-1, labels[..., None])[..., 0]
     denom = torch.clamp(torch.sum(mask), min=1.0)

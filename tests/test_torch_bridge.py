@@ -63,8 +63,15 @@ def test_port_init_has_the_jax_tree_keys_and_shapes(jax_tree):
     got = [(p, tuple(t.shape)) for p, t in _leaves(ours)]
     assert got == want
     assert all(t.dtype == torch.float32 for _, t in _leaves(ours))
-    with pytest.raises(ValueError):
-        tgpt.init(torch.Generator(), dict(tgpt.TINY_CONFIG, moe_experts=4))
+    # MoE configs build the reference's tree too (layers[i].moe)
+    import jax
+
+    from paddle_operator_tpu.models import gpt
+
+    jax_moe = gpt.init(jax.random.PRNGKey(0), gpt.TINY_MOE_CONFIG)
+    ours = tgpt.init(torch.Generator().manual_seed(0), tgpt.TINY_MOE_CONFIG)
+    assert [(p, tuple(t.shape)) for p, t in _leaves(ours)] == [
+        (p, a.shape) for p, a in _leaves(jax_moe)]
 
 
 def _layer_case(name):
@@ -135,7 +142,8 @@ def test_port_gpt_forward_matches_jax(jax_tree):
     want, _ = gpt.apply(jax.tree_util.tree_map(jnp.asarray, jax_tree),
                         jnp.asarray(ids, jnp.int32), dtype=jnp.float32,
                         attn_impl="einsum")
-    got = tgpt.apply(bridge.params_from_numpy(jax_tree, device="cpu"),
-                     torch.from_numpy(ids), dtype=torch.float32,
-                     attn_impl="einsum")
+    got, aux = tgpt.apply(bridge.params_from_numpy(jax_tree, device="cpu"),
+                          torch.from_numpy(ids), dtype=torch.float32,
+                          attn_impl="einsum")
     assert np.max(np.abs(got.numpy() - np.asarray(want))) < 1e-4
+    assert float(aux) == 0.0          # a dense config has no MoE aux loss
