@@ -420,20 +420,58 @@ def flash_bound(kind: str, shape, dtype, causal: bool, rate: float):
             "bytes" if bytes_ms >= flops_ms else "operations", flops, nbytes)
 
 
-def _flash_measure(rate: float) -> dict:
-    """Kernels B2a/B2b/B2c against their plain versions: fp32 at B=2, H=4,
-    S=512, D in {64, 128}, causal and not; the LSE entry point through
-    autograd; bf16 at the training path's shape (16 x 12 x 1024 x 64,
-    causal), where the kernels are timed beside their plain versions and
-    PyTorch's ``scaled_dot_product_attention`` (forward; backward = forward
-    and backward less forward, the yardstick of dQ and dK/dV together)."""
+def _flash_small(dtype, dims) -> list:
+    """Each flash kernel against its plain version at B=2, H=4, S=512,
+    each D of ``dims``, causal and not."""
     small = []
-    for d in (64, 128):
+    for d in dims:
         for causal in (False, True):
-            q, k, v, g = _flash_inputs(2, 4, 512, d, torch.float32, seed=d)
+            q, k, v, g = _flash_inputs(2, 4, 512, d, dtype, seed=d)
             got, want, _ = _flash_compare(q, k, v, g, causal)
             small.append({"shape": [2, 4, 512, d], "causal": causal,
                           "errors": _flash_errors(got, want)})
+    return small
+
+
+def _flash_rounding_model(args, want) -> dict:
+    """``testing.mma_flash_fwd`` / ``mma_flash_dkv``, the plain model of
+    the bf16 B2a and B2c kernels' rounding, with P and dS split into bf16
+    hi + lo as the kernels carry them ("split") and rounded once
+    ("single"), against the plain versions under the bf16 rule."""
+    q, k, v, _, _, _, scale, causal = args
+    out = {}
+    for name, split in (("split", True), ("single", False)):
+        o, _ = testing.mma_flash_fwd(q, k, v, scale, causal, split)
+        dk, dv = testing.mma_flash_dkv(*args, split=split)
+        out[name] = {n: testing.bf16_errors(x, want[n])
+                     for n, x in (("o", o), ("dk", dk), ("dv", dv))}
+    return out
+
+
+def _flash_rerun(q, k, v, got, args) -> dict:
+    """B2a and B2c launched again on the inputs of ``got``'s launch: per
+    output, whether the bits are the same (no atomics, a fixed order)."""
+    scale, causal = args[-2:]
+    out, lse = attention._launch_fwd(q, k, v, scale, causal)
+    dk, dv = attention._launch_dkv(*args)
+    return {name: bool(torch.equal(x, got[name]))
+            for name, x in (("o", out), ("lse", lse), ("dk", dk),
+                            ("dv", dv))}
+
+
+def _flash_measure(rate: float) -> dict:
+    """Kernels B2a/B2b/B2c against their plain versions: fp32 at B=2, H=4,
+    S=512, D in {64, 128}, and bf16 there at D in {64, 128, 256} (B2a and
+    B2c on the tensor cores), causal and not; the LSE entry point through
+    autograd; bf16 at the training path's shape (16 x 12 x 1024 x 64,
+    causal), where B2a and B2c are also launched twice and must agree bit
+    for bit, their rounding model is held to the bf16 rule (and a single
+    rounding of P and dS must break it), and the kernels are timed beside
+    their plain versions and PyTorch's ``scaled_dot_product_attention``
+    (forward; backward = forward and backward less forward, the yardstick
+    of dQ and dK/dV together)."""
+    small = _flash_small(torch.float32, (64, 128))
+    small_bf16 = _flash_small(torch.bfloat16, (64, 128, 256))
     q, k, v, g = _flash_inputs(2, 4, 512, 64, torch.float32, seed=3)
     lse_entry = {"shape": [2, 4, 512, 64], "causal": True,
                  "errors": _flash_lse_entry(q, k, v, g, True)}
@@ -444,6 +482,8 @@ def _flash_measure(rate: float) -> dict:
     got, want, args = _flash_compare(q, k, v, g, True)
     path_errors = _flash_errors(got, want)
     planted = _flash_planted(q, k, v, g, got, want)
+    rerun = _flash_rerun(q, k, v, got, args)
+    rounding = _flash_rounding_model(args, want)
     del got, want
     scale = shape[-1] ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -475,9 +515,11 @@ def _flash_measure(rate: float) -> dict:
                       else lib_bwd_ms,
                       "bound_ms": bound, "bound_by": by, "flops": flops,
                       "bytes": nbytes, "tflop_per_s": flops / ms / 1e9}
-    return {"small_fp32": small, "lse_entry": lse_entry,
+    return {"small_fp32": small, "small_bf16": small_bf16,
+            "lse_entry": lse_entry,
             "path": {"shape": list(shape), "dtype": "bf16", "causal": True,
                      "errors": path_errors, "planted_faults": planted,
+                     "rerun_bitwise": rerun, "rounding_model": rounding,
                      "library_fwd_max_abs_err": lib_err},
             "timing": rows,
             "library": "scaled_dot_product_attention(is_causal=True); the "
@@ -485,10 +527,15 @@ def _flash_measure(rate: float) -> dict:
                        "dV together)"}
 
 
+def _flash_cases(flash: dict) -> list:
+    """Every case held to the flash tolerances, small and at the path."""
+    return (flash["small_fp32"] + flash["small_bf16"]
+            + [flash["lse_entry"], flash["path"]])
+
+
 def _flash_failures(flash: dict) -> list:
     problems = []
-    cases = flash["small_fp32"] + [flash["lse_entry"], flash["path"]]
-    for case in cases:
+    for case in _flash_cases(flash):
         for name, e in case["errors"].items():
             if not e["worst"] <= 1.0:
                 problems.append("flash %s off by %g, %g times its bound, at "
@@ -500,6 +547,18 @@ def _flash_failures(flash: dict) -> list:
             if not e["worst"] > 1.0:
                 problems.append("the bf16 rule passes planted fault %s in %s"
                                 % (fault, name))
+    for name, same in flash["path"]["rerun_bitwise"].items():
+        if not same:
+            problems.append("flash %s differs between two launches on the "
+                            "same inputs" % name)
+    model = flash["path"]["rounding_model"]
+    for name in model["split"]:
+        if not model["split"][name]["worst"] <= 1.0:
+            problems.append("the split-rounding model of %s breaks the bf16 "
+                            "rule" % name)
+        if not model["single"][name]["worst"] > 1.0:
+            problems.append("the bf16 rule passes a single rounding of P "
+                            "and dS in %s" % name)
     return problems
 
 
@@ -1100,8 +1159,10 @@ def _gpt_grad_check() -> dict:
                        variants)["einsum"]
 
 
-FLASH_PROFILE_NAMES = ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")
+#: device-time names of the flash kernels, matched by substring: each
+#: covers both designs (``flash_fwd_kernel<float, D>`` on fp32 and
+#: ``flash_fwd_mma_kernel<D>`` on bf16; likewise dq and dkv)
+FLASH_PROFILE_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
 MOE_PROFILE_NAMES = ("moe_dispatch_kernel", "moe_combine_kernel")
 
 
@@ -2030,7 +2091,7 @@ def main() -> int:
         row = flash["timing"][key]
         outputs = {"fwd": ("o", "lse"), "dq": ("dq",),
                    "dkv": ("dk", "dv")}[key]
-        cases = flash["small_fp32"] + [flash["lse_entry"], flash["path"]]
+        cases = _flash_cases(flash)
         flash_rows.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces,

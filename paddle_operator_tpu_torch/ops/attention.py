@@ -6,11 +6,12 @@ Flash attention (training): :func:`flash_attention` and
 differentiable through one ``torch.autograd.Function``, the counterpart of
 the reference's ``jax.custom_vjp``s. For CUDA tensors the forward launches
 kernel B2a and the backward kernels B2b (dQ) and B2c (dK/dV), all three in
-the hand-written ``csrc/flash_attention.cu``; CPU tensors take the plain
-versions beside them (:func:`_plain_flash_fwd`, :func:`_plain_flash_dq`,
-:func:`_plain_flash_dkv`), which materialise the scores and repeat the
-kernels' arithmetic. On a CUDA tensor the wrappers launch the kernel or
-raise.
+the hand-written ``csrc/flash_attention.cu`` (on bf16, B2a and B2c run on
+the tensor cores; ``testing.mma_flash_fwd`` and ``mma_flash_dkv`` model
+their rounding); CPU tensors take the plain versions beside them
+(:func:`_plain_flash_fwd`, :func:`_plain_flash_dq`,
+:func:`_plain_flash_dkv`), which materialise the scores in fp32. On a
+CUDA tensor the wrappers launch the kernel or raise.
 
 Paged decode (serving): one query token per sequence against a KV history
 scattered across fixed-size cache pages (:mod:`..serving.kv_cache`, the
@@ -309,10 +310,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``block_q``/``block_k`` are checked as the reference checks them
     (multiples of 128 that divide S; None is its auto size), so a call
     valid in the JAX package is valid here; the CUDA kernels pick their
-    own tiles (64 x 64, or 32 x 32 at D = 256) and the plain versions need
-    none. CUDA tensors (fp32 or bf16, ``supports`` shapes) run kernel B2a
-    forward and B2b/B2c backward, counted in ``flash_attention.launches``;
-    CPU tensors run the plain versions."""
+    own tiles (64 rows a block; ``csrc/flash_attention.cu``) and the plain
+    versions need none. CUDA tensors (fp32 or bf16, ``supports`` shapes)
+    run kernel B2a forward and B2b/B2c backward, counted in
+    ``flash_attention.launches``; CPU tensors run the plain versions."""
     return flash_attention_lse(q, k, v, scale, block_q, block_k, causal)[0]
 
 

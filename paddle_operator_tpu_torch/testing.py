@@ -12,6 +12,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .ops import attention
+
 #: the additive part of the bf16 rule: covers fp32 summation-order
 #: differences of results near 0, where one bf16 ulp is smaller than they
 BF16_ATOL = 1e-5
@@ -58,6 +60,59 @@ def causal_attention_autograd(q: torch.Tensor, k: torch.Tensor,
     grads = torch.autograd.grad(out, leaves, dout.float())
     return {name: x.detach().to(q.dtype)
             for name, x in zip(("o", "dq", "dk", "dv"), (out, *grads))}
+
+
+def bf16_parts(x: torch.Tensor, split: bool = True) -> list:
+    """fp32 ``x`` as the bf16 tensor-core operands that carry it: ``[hi,
+    lo]`` with ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (``x - hi`` is
+    exact in fp32), or ``[hi]`` alone when ``split`` is False; each as
+    fp32, so that a product of them sums in fp32."""
+    hi = x.bfloat16().float()
+    return [hi, (x - hi).bfloat16().float()] if split else [hi]
+
+
+def mma_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool, split: bool = True,
+                  block_k: int = 64):
+    """A plain model of the rounding of the bf16 forward kernel
+    (``flash_fwd_mma_kernel``): ``scale * (q k^T)`` summed in fp32 from
+    the bf16 operands, an online softmax over ``block_k``-key tiles, and
+    ``O += P v`` with P (fp32) carried as :func:`bf16_parts`. Returns
+    ``(O in q's type, LSE fp32)`` as ``_plain_flash_fwd`` does."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = attention._causal_mask(s)
+    rows = s.shape[:-1] + (1,)
+    m = torch.full(rows, attention.NEG_INF, device=s.device)
+    l = torch.zeros(rows, device=s.device)
+    acc = torch.zeros(q.shape, device=s.device)
+    for k0 in range(0, s.shape[-1], block_k):
+        tile = s[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr
+        for part in bf16_parts(p, split):
+            acc = acc + torch.matmul(part, v[..., k0:k0 + block_k, :].float())
+        m = m_new
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def mma_flash_dkv(q, k, v, dout, lse, delta, scale: float, causal: bool,
+                  split: bool = True):
+    """A plain model of the rounding of the bf16 dK/dV kernel
+    (``flash_dkv_mma_kernel``): P and dS in fp32 from bf16 operands, as
+    ``_plain_flash_dkv`` has them, then ``dV = P^T dO`` and ``dK = scale *
+    dS^T q`` with P and dS carried as :func:`bf16_parts`. Returns ``(dK,
+    dV)`` in k's and v's types."""
+    p = attention._plain_probs(q, k, lse, scale, causal)
+    ds = attention._plain_ds(p, v, dout, delta)
+    dv = sum(torch.matmul(part.transpose(-1, -2), dout.float())
+             for part in bf16_parts(p, split))
+    dk = sum(torch.matmul(part.transpose(-1, -2), q.float())
+             for part in bf16_parts(ds, split)) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def misscaled_tile(x: torch.Tensor, rows: int = 64) -> torch.Tensor:

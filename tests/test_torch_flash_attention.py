@@ -7,9 +7,14 @@ JAX package's own kernel-vs-reference bound
 (``tests/test_pallas_attention.py``). Inputs and cotangents are made with
 numpy from a seed; the JAX side runs with ``block_q != block_k``.
 
+The bf16 kernels B2a and B2c run on the tensor cores with P and dS split
+into bf16 hi + lo; ``testing.mma_flash_fwd`` / ``mma_flash_dkv`` model
+that rounding on the CPU, and the tests hold the model to the bf16 rule
+against the plain versions (and show that one bf16 rounding breaks it).
+
 The ``cuda``-marked tests hold each CUDA kernel (B2a forward, B2b dQ,
 B2c dK/dV of ``csrc/flash_attention.cu``) against its plain version on
-the card and skip where there is none.
+the card, in fp32 and bf16, and skip where there is none.
 """
 
 import numpy as np
@@ -238,6 +243,79 @@ def test_autograd_attention_matches_plain_in_fp32():
         assert _max_err(got[name].numpy(), w.numpy()) < ATOL, name
 
 
+def test_plain_forward_matches_interpret_pallas_forward():
+    """``_plain_flash_fwd``, the yardstick the card holds kernel B2a to,
+    against the JAX package's forward kernel in interpret mode: O and LSE
+    within 2e-5 in fp32."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from paddle_operator_tpu.ops import attention_pallas as ap
+
+    q, k, v, _, _ = _inputs(256, 64, seed=6)
+    for causal in (False, True):
+        bq, bk = _jax_blocks(256, causal)
+        out, lse = ap.flash_attention_lse(
+            *(jnp.asarray(x) for x in (q, k, v)), block_q=bq, block_k=bk,
+            interpret=True, causal=causal)
+        got, got_lse = attention._plain_flash_fwd(
+            *(torch.from_numpy(x) for x in (q, k, v)), 0.125, causal)
+        assert _max_err(got.numpy(), np.asarray(out)) < ATOL
+        assert _max_err(got_lse.numpy(), np.asarray(lse)) < ATOL
+
+
+def _mma_case(causal, seed=11):
+    """bf16 inputs at 2 x 4 x 1024 x 64 from a seed, the plain forward,
+    and the backward's operands on its O and LSE."""
+    q, k, v, g, _ = _inputs(1024, 64, b=2, h=4, seed=seed)
+    q, k, v, g = (torch.from_numpy(x).bfloat16() for x in (q, k, v, g))
+    out, lse = attention._plain_flash_fwd(q, k, v, 0.125, causal)
+    delta = torch.sum(g.float() * out.float(), dim=-1)
+    return (q, k, v, g), (out, lse), (q, k, v, g, lse, delta, 0.125, causal)
+
+
+def _mma_errors(causal, split):
+    """The rounding model of the bf16 tensor-core kernels against the
+    plain versions, by output."""
+    (q, k, v, _), (out, lse), args = _mma_case(causal)
+    got_out, got_lse = testing.mma_flash_fwd(q, k, v, 0.125, causal, split)
+    got_dk, got_dv = testing.mma_flash_dkv(*args, split=split)
+    want_dk, want_dv = attention._plain_flash_dkv(*args)
+    return ({"o": testing.bf16_errors(got_out, out),
+             "dk": testing.bf16_errors(got_dk, want_dk),
+             "dv": testing.bf16_errors(got_dv, want_dv)},
+            _max_err(got_lse.numpy(), lse.numpy()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_bf16_products_hold_the_bf16_rule(causal):
+    """P and dS split into bf16 hi + lo, as kernels B2a and B2c carry them
+    to the tensor cores: O, dK and dV within one bf16 ulp of the plain
+    versions plus ``testing.BF16_ATOL``, LSE within 2e-5."""
+    errors, lse_err = _mma_errors(causal, split=True)
+    for name, e in errors.items():
+        assert e["worst"] <= 1.0 and e["outside"] == 0, (name, e)
+    assert lse_err < ATOL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_single_bf16_rounding_breaks_the_bf16_rule(causal):
+    """P and dS rounded once to bf16: O, dK and dV fall outside the rule by
+    tens of ulps, which is why the kernels split them."""
+    errors, _ = _mma_errors(causal, split=False)
+    for name, e in errors.items():
+        assert e["worst"] > 10.0 and e["outside"] > 1000, (name, e)
+
+
+def test_bf16_parts():
+    x = torch.tensor([1.0 + 2.0 ** -12, -3.0, 0.0, 1e-3])
+    hi, lo = testing.bf16_parts(x)
+    assert hi.tolist() == x.bfloat16().float().tolist()
+    assert hi[0].item() == 1.0 and lo[0].item() == 2.0 ** -12
+    assert torch.all(torch.abs(hi + lo - x) <= 2.0 ** -17 * torch.abs(x))
+    assert len(testing.bf16_parts(x, split=False)) == 1
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -256,18 +334,24 @@ def _card_inputs(device, s, d, dtype, b=2, h=4, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s,d", [(128, 64), (512, 64), (512, 128),
-                                 (512, 256)])
-def test_cuda_kernels_match_plain(cuda_device, causal, s, d):
-    """fp32: every output within 2e-5 of the plain version's largest
-    magnitude (or of 1, if larger). S = 128 is valid for the reference's
-    flash_attention though mha's ``supports`` wants 256."""
-    q, k, v, g = _card_inputs(cuda_device, s, d, torch.float32)
+@pytest.mark.parametrize("dtype,s,d", [
+    (torch.float32, 128, 64), (torch.float32, 512, 64),
+    (torch.float32, 512, 128), (torch.float32, 512, 256),
+    (torch.bfloat16, 512, 64), (torch.bfloat16, 512, 128),
+    (torch.bfloat16, 512, 256)])
+def test_cuda_kernels_match_plain(cuda_device, causal, dtype, s, d):
+    """fp32 (SIMT kernels): every output within 2e-5 of the plain
+    version's largest magnitude (or of 1, if larger). bf16 (B2a and B2c on
+    the tensor cores, B2b on SIMT): each bf16 output element within one
+    bf16 ulp of the plain value plus ``testing.BF16_ATOL``, LSE as in fp32.
+    S = 128 is valid for the reference's flash_attention though mha's
+    ``supports`` wants 256."""
+    q, k, v, g = _card_inputs(cuda_device, s, d, dtype)
     scale = d ** -0.5
     before = dict(attention.flash_attention.launches)
     out, lse = attention._launch_fwd(q, k, v, scale, causal)
     want_out, want_lse = attention._plain_flash_fwd(q, k, v, scale, causal)
-    delta = torch.sum(g * out, dim=-1)
+    delta = torch.sum(g.float() * out.float(), dim=-1)
     args = (q, k, v, g, lse, delta, scale, causal)
     dq = attention._launch_dq(*args)
     dk, dv = attention._launch_dkv(*args)
@@ -279,8 +363,31 @@ def test_cuda_kernels_match_plain(cuda_device, causal, s, d):
     for got, want in ((out, want_out), (lse, want_lse), (dq, want_dq),
                       (dk, want_dk), (dv, want_dv)):
         assert got.shape == want.shape and got.dtype == want.dtype
-        bound = ATOL * max(1.0, torch.max(torch.abs(want)).item())
-        assert torch.max(torch.abs(got - want)).item() <= bound
+        if got.dtype == torch.bfloat16:
+            errors = testing.bf16_errors(got, want)
+            assert errors["worst"] <= 1.0, errors
+        else:
+            bound = ATOL * max(1.0, torch.max(torch.abs(want)).item())
+            assert torch.max(torch.abs(got - want)).item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_bf16_kernels_are_deterministic(cuda_device, d):
+    """B2a and B2c launched twice on the same bf16 inputs give the same
+    bits: no atomics, a fixed summation order (the GPT resume gate relies
+    on it)."""
+    q, k, v, g = _card_inputs(cuda_device, 512, d, torch.bfloat16, seed=9)
+    scale = d ** -0.5
+    outs = []
+    for _ in range(2):
+        out, lse = attention._launch_fwd(q, k, v, scale, True)
+        delta = torch.sum(g.float() * out.float(), dim=-1)
+        outs.append((out, lse, *attention._launch_dkv(
+            q, k, v, g, lse, delta, scale, True)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
