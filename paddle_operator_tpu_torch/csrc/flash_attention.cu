@@ -26,14 +26,15 @@
 //
 // Two designs, by input type:
 //
-// bf16 forward and dK/dV (flash_fwd_mma_kernel, flash_dkv_mma_kernel):
+// bf16 (flash_fwd_mma_kernel, flash_dq_mma_kernel, flash_dkv_mma_kernel):
 // tensor cores. Products are mma.sync.m16n8k16 with bf16 operands and fp32
 // accumulators, operands come from shared memory by ldmatrix (.trans where
 // the operand is k-major), and tiles arrive by cp.async into a two-stage
 // ring, the next tile in flight while the current one is multiplied.
 //  * Four warps a block; each warp owns 16 rows of the block's 64 (query
-//    rows in the forward, key rows in dK/dV) and keeps its accumulators
-//    in registers. Row max and sum are over the 4 lanes of a quad.
+//    rows in the forward and dQ, key rows in dK/dV) and keeps its
+//    accumulators in registers. Row max and sum are over the 4 lanes of a
+//    quad.
 //  * q k^T and dO v^T have bf16 operands: exact products, fp32 sums. The
 //    score is scaled after the product (at D = 64 the scale is 0.125 and
 //    this equals scaling q first bit for bit; elsewhere it differs by one
@@ -41,26 +42,30 @@
 //  * P and dS are fp32. One bf16 rounding of them moves bf16 outputs by
 //    tens of ulps, so each is split into hi = bf16(x) and lo = bf16(x -
 //    hi), and both go through the tensor cores into one fp32 accumulator
-//    (hi + lo keeps 16 bits of x, error <= 2^-17 |x|): 1.5x the products
-//    of a single rounding, within one bf16 ulp of the fp32 plain versions.
+//    (hi + lo keeps 16 bits of x, error <= 2^-17 |x|): within one bf16 ulp
+//    of the fp32 plain versions, for 3/2 the products of a single rounding
+//    in the forward and dK/dV and 4/3 in dQ (q k^T, dO v^T, then dS k
+//    twice).
 //  * The accumulator fragment of a score product is the A fragment of the
 //    next product (two m16n8 C tiles are one m16k16 A tile), so P, dS and
-//    their transposes never leave registers. dK/dV compute S^T = K Q^T
-//    and dP^T = V dO^T directly, so their fragments are the A operands of
-//    dV += P^T dO and dK += dS^T Q; LSE and delta are read per column
-//    from shared memory.
+//    their transposes never leave registers. dQ takes dS as it comes out of
+//    the score products and multiplies it by the same K tile, read with
+//    ldmatrix.trans as V is for P v in the forward. dK/dV compute S^T = K
+//    Q^T and dP^T = V dO^T directly, so their fragments are the A operands
+//    of dV += P^T dO and dK += dS^T Q; LSE and delta are read per column
+//    from shared memory (per row from global memory, once, in dQ).
 //  * Rows are padded by 8 bf16 (16 bytes) in shared memory, so the 8 rows
 //    an ldmatrix reads fall in distinct banks.
-//  * D = 256: the forward takes 32-key tiles and reads Q from shared
-//    memory; dK/dV take 32-query tiles and split the output columns over
+//  * Registers: Q (and dO in dQ) stay in registers as A fragments where
+//    they fit: Q up to D = 128, dO at D = 64; elsewhere they are read from
+//    shared memory at each k-step. D = 256: the forward and dQ take 32-key
+//    tiles; dK/dV take 32-query tiles and split the output columns over
 //    two blocks (grid.z), each recomputing P and dS, so that a thread's
 //    accumulators stay at 128 floats.
 //
-// fp32 (flash_*_kernel<float, D>) and the bf16 dQ pass
-// (flash_dq_kernel<__nv_bfloat16, D>): the first, simple design, on fp32
-// CUDA cores (67 TFLOP/s at best), bound by its own instruction issue.
-// fp32 inputs stay here: they hold a 2e-5 absolute gate that TF32 could
-// not.
+// fp32 (flash_*_kernel<float, D>): the first, simple design, on fp32 CUDA
+// cores (67 TFLOP/s at best), bound by its own instruction issue. fp32
+// inputs stay here: they hold a 2e-5 absolute gate that TF32 could not.
 //  * 256 threads as a 16 x 16 grid (ty, tx). A score tile [R, C] is held
 //    in registers, thread (ty, tx) owning rows ty + 16*i and columns
 //    tx + 16*j; an output tile [R, D] likewise owns rows ty + 16*i and
@@ -68,10 +73,10 @@
 //    so row max and row sum are warp shuffles, and a row's softmax state
 //    (m, l, the correction) lives in the registers that own its outputs.
 //    The forward scales q before the product, as the TPU kernel does.
-//  * Tiles are staged from global memory through shared memory as fp32
-//    (bf16 converted at load), row pitch D + 1 where a warp reads down a
-//    column (no bank conflicts). A tile of R rows is R*D contiguous
-//    elements, so loads are coalesced 4-element vectors.
+//  * Tiles are staged from global memory through shared memory, row pitch
+//    D + 1 where a warp reads down a column (no bank conflicts). A tile of
+//    R rows is R*D contiguous elements, so loads are coalesced 4-element
+//    vectors.
 //  * Tiles: 64 x 64 for D in {64, 128}, 32 x 32 for D = 256, so that every
 //    kernel's shared memory fits in one SM (at most 166 KB).
 //
@@ -104,27 +109,14 @@ namespace {
 constexpr float kNegInf = -1e30f;  // ops/attention.py NEG_INF
 constexpr int kThreads = 256;      // 16 x 16
 
-// ---- loads and stores of the two input types ------------------------------
+// ---- SIMT loads and stores (fp32) -------------------------------------------
 
 __device__ __forceinline__ void load4(const float* p, float* out) {
   float4 a = __ldg(reinterpret_cast<const float4*>(p));
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&raw.x);
-  __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&raw.y);
-  float2 a = __bfloat1622float2(lo);
-  float2 b = __bfloat1622float2(hi);
-  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-}
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as a torch cast
-}
 
 // Stage a tile of ROWS contiguous rows of D elements from src into dst
 // (fp32, row pitch PITCH), each element multiplied by mul (1 keeps it
@@ -814,6 +806,162 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- B2b, bf16: dQ on the tensor cores --------------------------------------
+
+template <int D> struct DqMma {
+  static constexpr int BQ = kMmaRows;
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr bool kQInRegs = D <= 128;
+  static constexpr bool kDOInRegs = D <= 64;
+  static constexpr size_t smem_bytes() {
+    return (2 * size_t(BQ) + 4 * BK) * (D + kPad) * sizeof(bf16);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int S, float scale, int causal) {
+  using T = DqMma<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, P = D + kPad;
+  constexpr int KD = D / 16;  // k16 steps of q k^T and dO v^T
+  constexpr int NK = BK / 8;  // n8 tiles of a score row
+  constexpr int ND = D / 8;   // n8 tiles of a dQ row
+  constexpr int QR = T::kQInRegs ? KD : 1;
+  constexpr int GR = T::kDOInRegs ? KD : 1;
+  extern __shared__ uint4 mma_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(mma_smem);
+  bf16* dOs = Qs + BQ * P;
+  bf16* Ks = dOs + BQ * P;     // [2][BK][P]
+  bf16* Vs = Ks + 2 * BK * P;  // [2][BK][P]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heavy tiles first
+  const int wr = warp * 16;                          // the warp's rows
+  const size_t base = size_t(blockIdx.y) * S * D;
+  const size_t row_base = size_t(blockIdx.y) * S + q0 + wr + g;
+  const int n_tiles = causal ? (q0 + BQ + BK - 1) / BK : S / BK;
+
+  cp_tile<BQ, D>(Qs, q + base + size_t(q0) * D);
+  cp_tile<BQ, D>(dOs, dout + base + size_t(q0) * D);
+  cp_tile<BK, D>(Ks, k + base);
+  cp_tile<BK, D>(Vs, v + base);
+  cp_async_commit();
+
+  // LSE and delta of the warp's rows g and g + 8
+  const float lse_r[2] = {lse[row_base], lse[row_base + 8]};
+  const float delta_r[2] = {delta[row_base], delta[row_base + 8]};
+  uint32_t qf[QR][4], gf[GR][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1, k0 = it * BK;
+    if (it + 1 < n_tiles) {  // the next tile, in flight while this one runs
+      const size_t next = base + size_t(k0 + BK) * D;
+      cp_tile<BK, D>(Ks + (stage ^ 1) * BK * P, k + next);
+      cp_tile<BK, D>(Vs + (stage ^ 1) * BK * P, v + next);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + stage * BK * P;
+    const bf16* Vt = Vs + stage * BK * P;
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < QR; ++kk)
+        if (T::kQInRegs) ldsm_x4(qf[kk], a_at(Qs, P, wr, kk * 16, lane));
+#pragma unroll
+      for (int kk = 0; kk < GR; ++kk)
+        if (T::kDOInRegs) ldsm_x4(gf[kk], a_at(dOs, P, wr, kk * 16, lane));
+    }
+
+    // s = q k^T and dp = dO v^T for the warp's 16 rows and BK keys
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ag[4];
+      if (T::kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) aq[e] = qf[kk % QR][e];
+      } else {
+        ldsm_x4(aq, a_at(Qs, P, wr, kk * 16, lane));
+      }
+      if (T::kDOInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ag[e] = gf[kk % GR][e];
+      } else {
+        ldsm_x4(ag, a_at(dOs, P, wr, kk * 16, lane));
+      }
+#pragma unroll
+      for (int n = 0; n < NK; n += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, bt_at(Kt, P, n * 8, kk * 16, lane));
+        mma(s[n], aq, b[0], b[1]);
+        mma(s[n + 1], aq, b[2], b[3]);
+        ldsm_x4(b, bt_at(Vt, P, n * 8, kk * 16, lane));
+        mma(dp[n], ag, b[0], b[1]);
+        mma(dp[n + 1], ag, b[2], b[3]);
+      }
+    }
+
+    // p = exp(scale s - LSE), ds = p (dp - delta), masked in the fragment
+    // layout on the diagonal tile (rows g and g + 8 of the warp)
+    const bool diag = causal && k0 + BK - 1 > q0 + wr;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (diag &&
+            k0 + n * 8 + 2 * t + (e & 1) > q0 + wr + g + (e >> 1) * 8)
+          x = kNegInf;
+        const float p = expf(x - lse_r[e >> 1]);
+        dp[n][e] = p * (dp[n][e] - delta_r[e >> 1]);
+      }
+
+    // dQ += ds k, ds split into hi + lo, 16 keys at a time
+#pragma unroll
+    for (int j = 0; j < NK / 2; ++j) {
+      uint32_t dh[4], dl[4];
+      split_a(dp[2 * j], dp[2 * j + 1], dh, dl);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t b[4];
+        ldsm_x4_t(b, b_at(Kt, P, j * 16, n * 8, lane));
+        mma(acc[n], dh, b[0], b[1]);
+        mma(acc[n], dl, b[0], b[1]);
+        mma(acc[n + 1], dh, b[2], b[3]);
+        mma(acc[n + 1], dl, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before refill
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* out = dq + base + size_t(q0 + wr + g + r * 8) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * r] * scale,
+                                acc[n][2 * r + 1] * scale);
+  }
+}
+
 // ---- B2c, bf16: dK / dV on the tensor cores ---------------------------------
 
 template <int D> struct DkvMma {
@@ -1060,6 +1208,24 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
+cudaError_t dq_mma(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq_out, int bh, int S, float scale, int causal,
+                   cudaStream_t stream) {
+  using T = DqMma<D>;
+  if (S % T::BQ || S % T::BK) return cudaErrorInvalidValue;
+  const size_t smem = T::smem_bytes();
+  cudaError_t err = prepare(flash_dq_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(S / T::BQ, bh);
+  flash_dq_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dq_out), S, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t dkv_mma(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, int bh, int S, float scale,
@@ -1090,8 +1256,8 @@ cudaError_t dkv_mma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = fp32 (SIMT), 1 = bf16 (tensor cores, but dQ on SIMT); any
-// other type is refused
+// dtype: 0 = fp32 (SIMT), 1 = bf16 (tensor cores); any other type is
+// refused
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
@@ -1116,8 +1282,8 @@ extern "C" int flash_attention_dq(const void* q, const void* k,
     BY_HEAD_DIM((dq<float, D>(q, k, v, dout, lse, delta, dq_out, bh, s,
                               scale, causal, st)));
   if (dtype == 1)
-    BY_HEAD_DIM((dq<bf16, D>(q, k, v, dout, lse, delta, dq_out, bh, s,
-                             scale, causal, st)));
+    BY_HEAD_DIM((dq_mma<D>(q, k, v, dout, lse, delta, dq_out, bh, s,
+                           scale, causal, st)));
   return cudaErrorInvalidValue;
 }
 

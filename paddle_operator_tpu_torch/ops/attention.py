@@ -6,9 +6,10 @@ Flash attention (training): :func:`flash_attention` and
 differentiable through one ``torch.autograd.Function``, the counterpart of
 the reference's ``jax.custom_vjp``s. For CUDA tensors the forward launches
 kernel B2a and the backward kernels B2b (dQ) and B2c (dK/dV), all three in
-the hand-written ``csrc/flash_attention.cu`` (on bf16, B2a and B2c run on
-the tensor cores; ``testing.mma_flash_fwd`` and ``mma_flash_dkv`` model
-their rounding); CPU tensors take the plain versions beside them
+the hand-written ``csrc/flash_attention.cu`` (on bf16 all three run on
+the tensor cores; ``testing.mma_flash_fwd``, ``mma_flash_dq`` and
+``mma_flash_dkv`` model their rounding); CPU tensors take the plain
+versions beside them
 (:func:`_plain_flash_fwd`, :func:`_plain_flash_dq`,
 :func:`_plain_flash_dkv`), which materialise the scores in fp32. On a
 CUDA tensor the wrappers launch the kernel or raise.
@@ -16,7 +17,8 @@ CUDA tensor the wrappers launch the kernel or raise.
 Paged decode (serving): one query token per sequence against a KV history
 scattered across fixed-size cache pages (:mod:`..serving.kv_cache`, the
 vLLM layout). :func:`paged_decode_attention` launches the hand-written
-CUDA kernel ``csrc/paged_decode.cu`` for CUDA tensors and uses
+CUDA kernel ``csrc/paged_decode.cu`` (fp32 or bf16 q and pages, split over
+pages, then merged) for CUDA tensors and uses
 :func:`_reference_paged_decode`, the plain gather-einsum version, only for
 tensors on the CPU. On a CUDA tensor it launches the kernel or raises.
 """
@@ -370,6 +372,21 @@ def supports_paged(q_shape: Sequence[int], block_size: int) -> bool:
     return d in (64, 128, 256) and block_size % 8 == 0
 
 
+#: about how many tokens one block of the paged-decode kernel's first pass
+#: takes, in whole pages (``paged_split``; ``kSplitTokens`` of
+#: ``csrc/paged_decode.cu``, which sizes its page-id buffer by it)
+PAGED_SPLIT_TOKENS = 128
+
+
+def paged_split(block_size: int, pages_per_seq: int) -> Tuple[int, int]:
+    """``(pages, splits)``: the paged-decode kernel spreads each (head,
+    sequence) over ``splits`` blocks of ``pages`` pages each, from the page
+    size and the table's width alone (never from ``seq_lens``, which would
+    need a device-to-host sync)."""
+    pages = max(1, PAGED_SPLIT_TOKENS // block_size)
+    return pages, -(-pages_per_seq // pages)
+
+
 def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             block_tables: torch.Tensor, seq_lens: torch.Tensor,
             scale: float) -> torch.Tensor:
@@ -381,29 +398,40 @@ def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             "page size divisible by 8, got head_dim %d, page size %d"
             % (d, block_size))
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if x.dtype != torch.float32:
-            raise TypeError("paged decode kernel takes fp32 %s, got %s"
-                            % (name, x.dtype))
+        if x.dtype not in _KERNEL_DTYPES:
+            raise TypeError("paged decode kernel takes fp32 or bf16 %s, got "
+                            "%s" % (name, x.dtype))
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError("paged decode kernel takes k_pages and v_pages of "
+                        "one type, got %s and %s"
+                        % (k_pages.dtype, v_pages.dtype))
     tensors = (q, k_pages, v_pages, block_tables, seq_lens)
     if any(x.device != q.device for x in tensors):
         raise ValueError("paged decode inputs lie on different devices: %s"
                          % [str(x.device) for x in tensors])
-    q = q.contiguous()
-    k_pages = k_pages.contiguous()
-    v_pages = v_pages.contiguous()
+    t = block_tables.shape[1]
+    if t == 0:
+        raise ValueError("paged decode kernel takes a table of at least one "
+                         "page")
+    pages, splits = paged_split(block_size, t)
+    q, k_pages, v_pages = _aligned(q), _aligned(k_pages), _aligned(v_pages)
     tables = block_tables.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    lib = _kernels.load("paged_decode")
-    fn = lib.paged_decode_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    # each split's partial state: m and l, then acc[D], fp32
+    part = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    fn = _kernels.load("paged_decode").paged_decode
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 b, h, d, block_size, tables.shape[1], float(scale), stream)
+                 tables.data_ptr(), lens.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), b, h, d, block_size, t, pages, splits,
+                 _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[k_pages.dtype],
+                 float(scale), stream)
     if err != 0:
         raise RuntimeError("paged_decode kernel launch failed: CUDA error %d"
                            % err)
@@ -421,12 +449,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     v_pages: ``[P, bs, H, D]`` page pools -- block_tables: ``[B, T]``
     int32 page ids per sequence (entries past the sequence's pages may be
     any valid id; their tokens are masked by ``seq_lens``) -- seq_lens:
-    ``[B]`` int32 tokens live in each sequence's cache, at least 1.
-    Returns the attention context ``[B, H, D]`` in ``q.dtype``.
+    ``[B]`` int32 tokens live in each sequence's cache. Positions at or
+    past a length score ``NEG_INF``, as in the reference: a length of 0
+    gives the mean of V over all ``T * bs`` slots of the table, a length
+    above ``T * bs`` counts as ``T * bs``. Scores, softmax and sums are
+    fp32; returns the attention context ``[B, H, D]`` in ``q.dtype``.
 
-    CUDA tensors go through the hand-written kernel (fp32 only) and add
-    one to ``paged_decode_attention.launches``; CPU tensors go through
-    :func:`_reference_paged_decode`. Inference only: no autograd.
+    CUDA tensors (q fp32 or bf16, the pools fp32 or bf16) go through the
+    hand-written kernel (two CUDA kernels: a pass split over pages and a
+    merge) and add one to ``paged_decode_attention.launches`` a call; CPU
+    tensors go through :func:`_reference_paged_decode`. Inference only: no
+    autograd.
     """
     b, h, d = q.shape
     _, _, kh, kd = k_pages.shape

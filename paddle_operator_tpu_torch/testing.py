@@ -115,6 +115,19 @@ def mma_flash_dkv(q, k, v, dout, lse, delta, scale: float, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def mma_flash_dq(q, k, v, dout, lse, delta, scale: float, causal: bool,
+                 split: bool = True):
+    """A plain model of the rounding of the bf16 dQ kernel
+    (``flash_dq_mma_kernel``): P and dS in fp32 from bf16 operands, as
+    ``_plain_flash_dq`` has them, then ``dQ = scale * dS k`` with dS
+    carried as :func:`bf16_parts`. Returns dQ in q's type."""
+    p = attention._plain_probs(q, k, lse, scale, causal)
+    ds = attention._plain_ds(p, v, dout, delta)
+    dq = sum(torch.matmul(part, k.float())
+             for part in bf16_parts(ds, split)) * scale
+    return dq.to(q.dtype)
+
+
 def misscaled_tile(x: torch.Tensor, rows: int = 64) -> torch.Tensor:
     """A planted fault: ``x`` ``[B, H, S, D]`` with one tile (first batch
     and head, ``rows`` rows from S/2) scaled by 1 + 2^-6."""
@@ -124,15 +137,17 @@ def misscaled_tile(x: torch.Tensor, rows: int = 64) -> torch.Tensor:
     return y
 
 #: the paged-decode cases: the ragged, non-contiguous case of the JAX
-#: package's serving tests; a bs=16, head_dim=128 case; and the full-width
-#: decode shape of GPT-2 small under the engine (B=8, H=12, D=64, bs=16,
-#: T=64 pages of a 1024-token max_seq)
-PAGED_CASES = ("ragged", "bs16_d128", "full_width")
+#: package's serving tests; a bs=16, head_dim=128 case; lengths the engine
+#: never gives (0, where every slot ties at NEG_INF and the result is the
+#: mean of V over the table, and one past T * bs, which counts as T * bs);
+#: and the full-width decode shape of GPT-2 small under the engine (B=8,
+#: H=12, D=64, bs=16, T=64 pages of a 1024-token max_seq)
+PAGED_CASES = ("ragged", "bs16_d128", "edge_lens", "full_width")
 
 
 def paged_decode_case(name: str, seed: int = 0) -> Dict[str, np.ndarray]:
     """q [B,H,D], k_pages/v_pages [P,bs,H,D] fp32, tables [B,T] int32,
-    lens [B] int32 (every len >= 1)."""
+    lens [B] int32."""
     rng = np.random.default_rng(seed)
     if name == "ragged":
         b, h, d, bs, pages = 3, 2, 64, 8, 16
@@ -142,6 +157,10 @@ def paged_decode_case(name: str, seed: int = 0) -> Dict[str, np.ndarray]:
         b, h, d, bs, pages, t = 4, 3, 128, 16, 24, 5
         tables = rng.permutation(pages)[:b * t].reshape(b, t)
         lens = np.asarray([1, 17, 40, t * bs])
+    elif name == "edge_lens":
+        b, h, d, bs, pages, t = 4, 2, 64, 8, 16, 3
+        tables = rng.permutation(pages)[:b * t].reshape(b, t)
+        lens = np.asarray([0, t * bs + 16, 7, 0])
     elif name == "full_width":
         b, h, d, bs, t = 8, 12, 64, 16, 64
         pages = b * t + 1

@@ -7,10 +7,11 @@ JAX package's own kernel-vs-reference bound
 (``tests/test_pallas_attention.py``). Inputs and cotangents are made with
 numpy from a seed; the JAX side runs with ``block_q != block_k``.
 
-The bf16 kernels B2a and B2c run on the tensor cores with P and dS split
-into bf16 hi + lo; ``testing.mma_flash_fwd`` / ``mma_flash_dkv`` model
-that rounding on the CPU, and the tests hold the model to the bf16 rule
-against the plain versions (and show that one bf16 rounding breaks it).
+The bf16 kernels B2a, B2b and B2c run on the tensor cores with P and dS
+split into bf16 hi + lo; ``testing.mma_flash_fwd`` / ``mma_flash_dq`` /
+``mma_flash_dkv`` model that rounding on the CPU, and the tests hold the
+model to the bf16 rule against the plain versions (and show that one bf16
+rounding breaks it).
 
 The ``cuda``-marked tests hold each CUDA kernel (B2a forward, B2b dQ,
 B2c dK/dV of ``csrc/flash_attention.cu``) against its plain version on
@@ -279,9 +280,12 @@ def _mma_errors(causal, split):
     plain versions, by output."""
     (q, k, v, _), (out, lse), args = _mma_case(causal)
     got_out, got_lse = testing.mma_flash_fwd(q, k, v, 0.125, causal, split)
+    got_dq = testing.mma_flash_dq(*args, split=split)
     got_dk, got_dv = testing.mma_flash_dkv(*args, split=split)
     want_dk, want_dv = attention._plain_flash_dkv(*args)
     return ({"o": testing.bf16_errors(got_out, out),
+             "dq": testing.bf16_errors(got_dq,
+                                       attention._plain_flash_dq(*args)),
              "dk": testing.bf16_errors(got_dk, want_dk),
              "dv": testing.bf16_errors(got_dv, want_dv)},
             _max_err(got_lse.numpy(), lse.numpy()))
@@ -289,9 +293,9 @@ def _mma_errors(causal, split):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_split_bf16_products_hold_the_bf16_rule(causal):
-    """P and dS split into bf16 hi + lo, as kernels B2a and B2c carry them
-    to the tensor cores: O, dK and dV within one bf16 ulp of the plain
-    versions plus ``testing.BF16_ATOL``, LSE within 2e-5."""
+    """P and dS split into bf16 hi + lo, as kernels B2a, B2b and B2c carry
+    them to the tensor cores: O, dQ, dK and dV within one bf16 ulp of the
+    plain versions plus ``testing.BF16_ATOL``, LSE within 2e-5."""
     errors, lse_err = _mma_errors(causal, split=True)
     for name, e in errors.items():
         assert e["worst"] <= 1.0 and e["outside"] == 0, (name, e)
@@ -300,8 +304,8 @@ def test_split_bf16_products_hold_the_bf16_rule(causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_single_bf16_rounding_breaks_the_bf16_rule(causal):
-    """P and dS rounded once to bf16: O, dK and dV fall outside the rule by
-    tens of ulps, which is why the kernels split them."""
+    """P and dS rounded once to bf16: O, dQ, dK and dV fall outside the
+    rule by tens of ulps, which is why the kernels split them."""
     errors, _ = _mma_errors(causal, split=False)
     for name, e in errors.items():
         assert e["worst"] > 10.0 and e["outside"] > 1000, (name, e)
@@ -341,9 +345,9 @@ def _card_inputs(device, s, d, dtype, b=2, h=4, seed=0):
     (torch.bfloat16, 512, 256)])
 def test_cuda_kernels_match_plain(cuda_device, causal, dtype, s, d):
     """fp32 (SIMT kernels): every output within 2e-5 of the plain
-    version's largest magnitude (or of 1, if larger). bf16 (B2a and B2c on
-    the tensor cores, B2b on SIMT): each bf16 output element within one
-    bf16 ulp of the plain value plus ``testing.BF16_ATOL``, LSE as in fp32.
+    version's largest magnitude (or of 1, if larger). bf16 (B2a, B2b and
+    B2c on the tensor cores): each bf16 output element within one bf16 ulp
+    of the plain value plus ``testing.BF16_ATOL``, LSE as in fp32.
     S = 128 is valid for the reference's flash_attention though mha's
     ``supports`` wants 256."""
     q, k, v, g = _card_inputs(cuda_device, s, d, dtype)
@@ -374,17 +378,18 @@ def test_cuda_kernels_match_plain(cuda_device, causal, dtype, s, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_bf16_kernels_are_deterministic(cuda_device, d):
-    """B2a and B2c launched twice on the same bf16 inputs give the same
-    bits: no atomics, a fixed summation order (the GPT resume gate relies
-    on it)."""
+    """B2a, B2b and B2c launched twice on the same bf16 inputs give the
+    same bits: no atomics, a fixed summation order (the GPT resume gate
+    relies on it)."""
     q, k, v, g = _card_inputs(cuda_device, 512, d, torch.bfloat16, seed=9)
     scale = d ** -0.5
     outs = []
     for _ in range(2):
         out, lse = attention._launch_fwd(q, k, v, scale, True)
         delta = torch.sum(g.float() * out.float(), dim=-1)
-        outs.append((out, lse, *attention._launch_dkv(
-            q, k, v, g, lse, delta, scale, True)))
+        args = (q, k, v, g, lse, delta, scale, True)
+        outs.append((out, lse, attention._launch_dq(*args),
+                     *attention._launch_dkv(*args)))
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
