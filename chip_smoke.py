@@ -1254,7 +1254,10 @@ def _gpt_grad_check() -> dict:
 #: covers both designs (``flash_fwd_kernel<float, D>`` on fp32 and
 #: ``flash_fwd_mma_kernel<D>`` on bf16; likewise dq and dkv)
 FLASH_PROFILE_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
-MOE_PROFILE_NAMES = ("moe_dispatch_kernel", "moe_combine_kernel")
+#: every CUDA kernel of B4: dispatch's slot-table build and its gather,
+#: and combine
+MOE_PROFILE_NAMES = ("moe_slot_table_kernel", "moe_dispatch_kernel",
+                     "moe_combine_kernel")
 
 
 def _step_profile(job, params, batch, names=(), warm: int = 2,
@@ -1582,12 +1585,14 @@ def _routing_parts(log: list, ref: list, layers: int) -> dict:
 
 
 @torch.no_grad()
-def _moe_case(tokens: int, factor: float, seed: int = 0) -> dict:
-    """``tokens`` tokens of GPT-2 small's width routed by ``moe._route`` (a
-    router from ``moe_init``, activations N(0, 1) from ``seed``, on the
-    card), with an fp32 gate and expert outputs ``[E, capacity, D]``."""
+def _moe_case(tokens: int, factor: float, seed: int = 0,
+              dim: int = 0) -> dict:
+    """``tokens`` tokens of GPT-2 small's width (or ``dim``) routed by
+    ``moe._route`` (a router from ``moe_init``, activations N(0, 1) from
+    ``seed``, on the card), with an fp32 gate and expert outputs
+    ``[E, capacity, D]``."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    d = gpt.BASE_CONFIG["hidden"]
+    d = dim or gpt.BASE_CONFIG["hidden"]
     params = moe.moe_init(gen, d, 8, MOE_EXPERTS)
     x = torch.randn((1, tokens, d), generator=gen, device=DEVICE)
     gate, choice, pos, cap, _ = moe._route(params, x, factor)
@@ -1596,73 +1601,158 @@ def _moe_case(tokens: int, factor: float, seed: int = 0) -> dict:
             "capacity": cap, "kept": int((pos < cap).sum().item())}
 
 
-def _moe_compare(case: dict, variants) -> dict:
-    """Each (kernel, in type, out type, gated) variant launched, and its
-    plain version on the same inputs: bitwise equality and max error."""
-    out = {}
+def moe_variant(kernel: str, tin, tout, weighted: bool) -> str:
+    """A B4 variant's name: weighted is the gate of combine, the scale of
+    dispatch."""
+    return "%s %s->%s%s" % (kernel, str(tin)[6:], str(tout)[6:],
+                            {(True, "dispatch"): " scaled",
+                             (True, "combine"): " gated"}.get(
+                                 (weighted, kernel), ""))
+
+
+def _moe_args(kernel: str, tin, tout, weighted: bool, case: dict) -> tuple:
+    """The arguments of one B4 variant on ``case``, its input in ``tin``."""
     e, c = MOE_EXPERTS, case["capacity"]
-    for kernel, tin, tout, gated in variants:
-        if kernel == "dispatch":
-            args = (case["x"].to(tin), case["choice"], case["pos"], e, c,
-                    tout)
-            got = moe._launch_dispatch(*args)
-            want = moe._plain_dispatch(*args)
-        else:
-            args = (case["eo"].to(tin), case["choice"], case["pos"],
-                    case["gate"] if gated else None, c, tout)
-            got = moe._launch_combine(*args)
-            want = moe._plain_combine(*args)
+    w = case["gate"] if weighted else None
+    if kernel == "dispatch":
+        return (case["x"].to(tin), case["choice"], case["pos"], e, c, tout, w)
+    return (case["eo"].to(tin), case["choice"], case["pos"], w, c, tout)
+
+
+def _moe_fns(kernel: str):
+    """(the kernel's wrapper, its plain version), as ``moe`` holds them
+    now (``_moe_path`` swaps them)."""
+    if kernel == "dispatch":
+        return moe._launch_dispatch, moe._plain_dispatch
+    return moe._launch_combine, moe._plain_combine
+
+
+def _moe_compare(case: dict, variants) -> dict:
+    """Each (kernel, in type, out type, weighted) variant launched, and
+    its plain version on the same inputs: bitwise equality, max error and
+    the kernel's path by the wrapper's per-path counts."""
+    out = {}
+    paths = moe.moe_apply_fused.path_launches
+    for kernel, tin, tout, weighted in variants:
+        args = _moe_args(kernel, tin, tout, weighted, case)
+        launch, plain = _moe_fns(kernel)
+        before = dict(paths)
+        got = launch(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
-        name = "%s %s->%s%s" % (kernel, str(tin)[6:], str(tout)[6:],
-                                " gated" if gated else "")
+        name = moe_variant(kernel, tin, tout, weighted)
         out[name] = {"bitwise": bool(torch.equal(got, want)),
                      "max_abs_err": (got.float() - want.float()).abs()
-                     .max().item()}
+                     .max().item(),
+                     "paths": [k for k in paths if paths[k] != before[k]]}
         if kernel == "combine":
             out[name]["dropped_rows_zero"] = not bool(
-                got[case["pos"] >= c].any())
+                got[case["pos"] >= case["capacity"]].any())
     return out
 
 
-def moe_bound(kind: str, case: dict, rate: float):
-    """The least time of one B4 call on ``case`` in bf16, in ms, and what
-    sets it: B4a reads the kept rows and the int64 routing and writes all
-    of ``[E, C, D]``; B4b reads the kept expert rows, the routing and the
-    fp32 gate, writes ``[T, D]`` and does one product per kept element."""
+def moe_bound(kernel: str, tin, tout, weighted: bool, case: dict,
+              rate: float):
+    """The least time of one B4 call on ``case``, in ms, what sets it and
+    its bytes: B4a reads the kept rows in its input type, the int64
+    routing and, scaled, the fp32 scale, and writes all of ``[E, C, D]``
+    in its output type; B4b reads the kept expert rows, the routing and,
+    gated, the gate, and writes ``[T, D]``; weighted, one product per kept
+    element."""
     t, d = case["x"].shape
-    kept_bytes = case["kept"] * d * 2
-    if kind == "dispatch":
-        nbytes = kept_bytes + MOE_EXPERTS * case["capacity"] * d * 2 + 16 * t
-        flops = 0
-    else:
-        nbytes = kept_bytes + t * d * 2 + 20 * t
-        flops = case["kept"] * d
+    size = {F32: 4, BF16: 2}
+    rows_out = MOE_EXPERTS * case["capacity"] if kernel == "dispatch" else t
+    nbytes = (case["kept"] * d * size[tin] + rows_out * d * size[tout]
+              + 16 * t + (4 * t if weighted else 0))
+    flops = case["kept"] * d if weighted else 0
     bytes_ms, flops_ms = 1e3 * nbytes / rate, 1e3 * flops / FP32_FLOPS
     return (max(bytes_ms, flops_ms),
             "bytes" if bytes_ms >= flops_ms else "operations", nbytes)
 
 
-#: every (kernel, in type, out type, gated) variant: the forward's
-#: bf16 pair, the backward's (dispatch of combine's fp32 cotangent, the
-#: ungated combine for dx and, in fp32, for the gate) and the fp32 pairs
+#: every (kernel, in type, out type, weighted) variant the kernels take:
+#: the bf16 compute path's (forward: dispatch, gated combine; backward:
+#: the dispatch of combine's cotangent scaled by the gate, the ungated
+#: combine for dx and, in fp32, for the gate's rows), the fp32 compute
+#: path's, and the rest of each kernel's pairs
 MOE_VARIANTS = (
-    ("dispatch", BF16, BF16, False), ("dispatch", F32, BF16, False),
-    ("dispatch", F32, F32, False), ("combine", BF16, BF16, True),
-    ("combine", BF16, BF16, False), ("combine", BF16, F32, False),
-    ("combine", F32, F32, True))
+    ("dispatch", BF16, BF16, False), ("dispatch", BF16, BF16, True),
+    ("dispatch", F32, BF16, False), ("dispatch", F32, BF16, True),
+    ("dispatch", F32, F32, False), ("dispatch", F32, F32, True),
+    ("combine", BF16, BF16, True), ("combine", BF16, BF16, False),
+    ("combine", BF16, F32, False), ("combine", BF16, F32, True),
+    ("combine", F32, F32, True), ("combine", F32, F32, False))
+#: the variants one bf16 train step launches, and how often per MoE layer:
+#: (variant, launches per forward, launches per backward). Remat runs the
+#: forward twice
+MOE_STEP_VARIANTS = (
+    (("dispatch", BF16, BF16, False), 1, 0),
+    (("dispatch", BF16, BF16, True), 0, 1),
+    (("combine", BF16, BF16, True), 1, 0),
+    (("combine", BF16, BF16, False), 0, 1),
+    (("combine", BF16, F32, False), 0, 1))
+#: the kernels line's row of each kernel: its forward variant
+MOE_MAIN = {"dispatch": moe_variant("dispatch", BF16, BF16, False),
+            "combine": moe_variant("combine", BF16, BF16, True)}
+
+
+def _moe_library(kernel: str, tin, tout, weighted: bool, case: dict):
+    """A PyTorch yardstick of one B4 variant on ``case``, with the same
+    output type: dispatch ``zero_`` + ``index_copy_`` into ``[E*C + 1,
+    D]`` (dropped tokens into the spare row), after ``torch.mul`` by the
+    scale into the output type where scaled (else a copy ``to`` it where
+    the types differ); combine ``index_select`` of the kept rows, then
+    ``torch.mul`` by the gate (ungated: by 1, and 0 for a dropped token)
+    with ``out=`` in the output type."""
+    e, c = MOE_EXPERTS, case["capacity"]
+    choice, pos, gate = case["choice"], case["pos"], case["gate"]
+    keep = pos < c
+    if kernel == "dispatch":
+        x = case["x"].to(tin)
+        t, d = x.shape
+        slots = torch.where(keep, choice * c + pos, e * c)
+        buf = torch.zeros((e * c + 1, d), dtype=tout, device=DEVICE)
+        tmp = torch.empty((t, d), dtype=tout, device=DEVICE)
+        if weighted:
+            return lambda: buf.zero_().index_copy_(
+                0, slots, torch.mul(x, gate[:, None], out=tmp))
+        if tin != tout:
+            return lambda: buf.zero_().index_copy_(0, slots, x.to(tout))
+        return lambda: buf.zero_().index_copy_(0, slots, x)
+    eo = case["eo"].to(tin).view(e * c, -1)
+    rows = torch.where(keep, choice * c + pos, 0)
+    w = torch.where(keep, gate if weighted else 1.0, 0.0)[:, None]
+    out = torch.empty((rows.shape[0], eo.shape[1]), dtype=tout, device=DEVICE)
+    return lambda: torch.mul(torch.index_select(eo, 0, rows), w, out=out)
+
+
+def _moe_copy(kernel: str, tin, tout, case: dict):
+    """What the memory system gives a plain copy of one B4 variant's
+    rows: PyTorch's ``copy_`` of the ``[T, D]`` input (every token kept
+    on the path) into an output row block of ``tout``, and, for
+    dispatch, ``zero_`` of the ``[E, C, D]`` output's other rows."""
+    x = (case["x"] if kernel == "dispatch" else case["eo"]).to(tin)
+    t, d = case["x"].shape
+    rows = MOE_EXPERTS * case["capacity"] if kernel == "dispatch" else t
+    out = torch.empty((rows, d), dtype=tout, device=DEVICE)
+    src = x.reshape(-1, d)[:t]
+    if rows == t:
+        return lambda: out.copy_(src)
+    return lambda: (out[:t].copy_(src), out[t:].zero_())
 
 
 def _moe_measure(rate: float) -> dict:
     """Kernels B4a/B4b against their plain versions, bitwise, over every
-    type pair the forward and the backward pass them: at the GPT-2 small
-    MoE path's shape (T = 16 x 1024, D = 768, E = 8, capacity 2560) and at
-    the BERT-base-MoE path's (T = 16 x 512, capacity 1280); then at a
-    ragged T; at capacity factor 0.5 (dropped rows must be exact zeros);
-    and with the forward fault planted (the check must reject it). Timed
-    at the GPT path's shape in bf16 beside the plain versions, a PyTorch
-    yardstick for each (``index_copy_`` into a zeroed ``[E*C + 1, D]``
-    buffer; ``index_select`` of the rows times the gate, zero for dropped
-    tokens) and the dense einsum formulation's dispatch and combine."""
+    variant: at the GPT-2 small MoE path's shape (T = 16 x 1024, D = 768,
+    E = 8, capacity 2560) and at the BERT-base-MoE path's (T = 16 x 512,
+    capacity 1280), both on the 16-byte path; then at a ragged T; at
+    capacity factor 0.5 (dropped rows must be exact zeros); at D = 203
+    (the scalar path); and with the forward fault planted (the check must
+    reject it). Each variant a bf16 train step launches is timed at the
+    GPT path's shape beside its bound, its plain version and a PyTorch
+    yardstick (``_moe_library``) and a plain copy of its rows
+    (``_moe_copy``); the forward variants also beside the dense einsum
+    formulation."""
     path = _moe_case(GPT_BATCH * GPT_SEQ, 1.25)
     bert_path = _moe_case(BERT_MOE_BATCH * BERT_SEQ, 1.25, seed=2)
     checks = {"path": _moe_compare(path, MOE_VARIANTS),
@@ -1670,13 +1760,16 @@ def _moe_measure(rate: float) -> dict:
                                 tokens=BERT_MOE_BATCH * BERT_SEQ,
                                 capacity=bert_path["capacity"])}
     del bert_path
-    for name, tokens, factor in (("ragged", 3 * 1024 - 5, 1.25),
-                                 ("drops", GPT_BATCH * GPT_SEQ, 0.5)):
-        case = _moe_case(tokens, factor, seed=1)
+    for name, tokens, factor, dim in (
+            ("ragged", 3 * 1024 - 5, 1.25, 0),
+            ("drops", GPT_BATCH * GPT_SEQ, 0.5, 0),
+            ("scalar_path", 3 * 1024 - 5, 1.25, 203)):
+        case = _moe_case(tokens, factor, seed=1, dim=dim)
         checks[name] = _moe_compare(case, (
-            ("dispatch", BF16, BF16, False), ("combine", BF16, BF16, True)))
-        checks[name]["tokens"] = tokens
-        checks[name]["dropped"] = tokens - case["kept"]
+            ("dispatch", BF16, BF16, False), ("dispatch", BF16, BF16, True),
+            ("combine", BF16, BF16, True), ("combine", BF16, F32, False)))
+        checks[name].update(tokens=tokens, dim=case["x"].shape[1],
+                            dropped=tokens - case["kept"])
     with _moe_path("kernels", MOE_FORWARD_FAULT):
         planted = _moe_compare(path, (("combine", BF16, BF16, True),))
 
@@ -1685,48 +1778,59 @@ def _moe_measure(rate: float) -> dict:
     choice, pos, gate = path["choice"], path["pos"], path["gate"]
     t, d = x.shape
     keep = pos < c
-    slots = torch.where(keep, choice * c + pos, e * c)
-    buf = torch.zeros((e * c + 1, d), dtype=BF16, device=DEVICE)
-    rows = torch.where(keep, choice * c + pos, 0)
-    gate_kept = torch.where(keep, gate, 0.0)[:, None]
     onehot = (torch.nn.functional.one_hot(choice, e).float()[:, :, None]
               * torch.nn.functional.one_hot(pos.clamp(0, c - 1), c)
               .float()[:, None, :] * keep[:, None, None])
     dense_dispatch = onehot.to(BF16)
     dense_combine = (onehot * gate[:, None, None]).to(BF16)
     del onehot
-    calls = {
-        "dispatch": (
-            lambda: moe._launch_dispatch(x, choice, pos, e, c, BF16),
-            lambda: moe._plain_dispatch(x, choice, pos, e, c, BF16),
-            lambda: buf.zero_().index_copy_(0, slots, x),
-            lambda: torch.einsum("tec,td->ecd", dense_dispatch, x)),
-        "combine": (
-            lambda: moe._launch_combine(eo, choice, pos, gate, c, BF16),
-            lambda: moe._plain_combine(eo, choice, pos, gate, c, BF16),
-            lambda: torch.index_select(eo.view(e * c, d), 0, rows)
-            * gate_kept,
-            lambda: torch.einsum("tec,ecd->td", dense_combine, eo))}
+    dense = {MOE_MAIN["dispatch"]: (
+        lambda: torch.einsum("tec,td->ecd", dense_dispatch, x)),
+             MOE_MAIN["combine"]: (
+        lambda: torch.einsum("tec,ecd->td", dense_combine, eo))}
+    cfg = dict(gpt.BASE_CONFIG, moe_experts=MOE_EXPERTS, moe_every=2)
+    per_step = moe_variant_launches(cfg, remat=True)
     timing = {}
-    for kind, (kernel, plain, library, dense) in calls.items():
-        bound, by, nbytes = moe_bound(kind, path, rate)
-        ms = device_ms(kernel)
-        timing[kind] = {"kernel_ms": ms, "plain_ms": device_ms(plain),
-                        "library_ms": device_ms(library),
-                        "dense_einsum_ms": device_ms(dense, reps=5),
-                        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                        "gb_per_s": nbytes / ms / 1e6}
+    for variant, _, _ in MOE_STEP_VARIANTS:
+        name = moe_variant(*variant)
+        bound, by, nbytes = moe_bound(*variant, path, rate)
+        args = _moe_args(*variant, path)
+        launch, plain = _moe_fns(variant[0])
+        library = _moe_library(*variant, path)
+        got = launch(*args)
+        lib_err = (library()[:got.shape[0] * got.shape[1]].view_as(got)
+                   .float() - got.float()).abs().max().item()
+        ms = device_ms(lambda: launch(*args))
+        row = {"kernel_ms": ms, "plain_ms": device_ms(lambda: plain(*args)),
+               "library_ms": device_ms(library),
+               "library_max_abs_err": lib_err,
+               "copy_ms": device_ms(_moe_copy(variant[0], variant[1],
+                                              variant[2], path)),
+               "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+               "gb_per_s": nbytes / ms / 1e6, "share_of_bound": bound / ms,
+               "launches_per_step": per_step[name]}
+        if name in dense:
+            row["dense_einsum_ms"] = device_ms(dense[name], reps=5)
+        timing[name] = row
     return {"shape": {"T": t, "D": d, "E": e, "C": c, "kept": path["kept"]},
             "checks": checks, "planted": {MOE_FORWARD_FAULT: planted},
             "timing": timing, "tolerance": MOE_TOL,
-            "library": {"dispatch": "zero_() + index_copy_ into [E*C+1, D]",
-                        "combine": "index_select of [E*C, D] rows * gate "
-                                   "(zero for dropped tokens; fp32 out)"}}
+            "b4_kernel_ms_per_gpt_moe_step": sum(
+                r["kernel_ms"] * r["launches_per_step"]
+                for r in timing.values()),
+            "library": {
+                "dispatch": "zero_() + index_copy_ into [E*C+1, D] (after "
+                            "torch.mul by the scale, out= the output type, "
+                            "where scaled)",
+                "combine": "index_select of [E*C, D] rows, then torch.mul "
+                           "by the gate (1 ungated; 0 for dropped tokens), "
+                           "out= the output type"}}
 
 
 def _moe_failures(m: dict) -> list:
     problems = []
     for case, results in m["checks"].items():
+        want_path = "scalar" if case == "scalar_path" else "vector"
         for name, r in results.items():
             if not isinstance(r, dict):
                 continue
@@ -1736,6 +1840,9 @@ def _moe_failures(m: dict) -> list:
             if not r.get("dropped_rows_zero", True):
                 problems.append("%s at %s: a dropped row is not zero"
                                 % (name, case))
+            if r["paths"] != ["%s_%s" % (name.split()[0], want_path)]:
+                problems.append("%s at %s took the path(s) %r, not the %s "
+                                "path" % (name, case, r["paths"], want_path))
     if not m["checks"]["drops"]["dropped"]:
         problems.append("capacity factor 0.5 dropped no token")
     if any(r["bitwise"] for r in m["planted"][MOE_FORWARD_FAULT].values()):
@@ -1777,15 +1884,25 @@ def moe_layers(cfg: dict) -> int:
                if cfg["moe_experts"] and li % cfg["moe_every"] == 0)
 
 
-def moe_launches_per_step(cfg: dict, remat: bool) -> dict:
-    """B4a/B4b launches of one train step, from the code: per MoE layer
-    the forward launches each once (twice under remat, which recomputes
-    it), the backward dispatches once (combine's cotangent) and combines
-    twice (dispatch's cotangent, the gate's ungated rows)."""
+def moe_variant_launches(cfg: dict, remat: bool) -> dict:
+    """B4 launches of one bf16 train step by variant, from the code
+    (MOE_STEP_VARIANTS): per MoE layer the forward dispatches and combines
+    with the gate once (twice under remat, which recomputes it); the
+    backward dispatches combine's cotangent scaled by the gate once and
+    combines ungated twice (dispatch's cotangent; the gate's rows in
+    fp32)."""
     layers = moe_layers(cfg)
     forwards = 2 if remat else 1
-    return {"dispatch": layers * (forwards + 1),
-            "combine": layers * (forwards + 2)}
+    return {moe_variant(*v): layers * (forwards * f + b)
+            for v, f, b in MOE_STEP_VARIANTS}
+
+
+def moe_launches_per_step(cfg: dict, remat: bool) -> dict:
+    """B4a/B4b launches of one train step: the sums of
+    :func:`moe_variant_launches` by kernel."""
+    by_variant = moe_variant_launches(cfg, remat)
+    return {k: sum(n for name, n in by_variant.items() if name.startswith(k))
+            for k in ("dispatch", "combine")}
 
 
 def _gpt_moe_run(path: str, ckpt_dir: str, make_batch=None,
@@ -1793,13 +1910,21 @@ def _gpt_moe_run(path: str, ckpt_dir: str, make_batch=None,
                  total: int = MOE_STEPS):
     """examples/train_gpt.py's job with TPUJOB_MOE_EXPERTS (a MOE_STEPS
     schedule), ``total`` steps of it, on MoE ``path``; also the B4
-    launches of the run."""
+    launches of the run, by kernel and by the kernels' path."""
     launches = _zero(moe.moe_apply_fused.launches)
+    paths = _zero(moe.moe_apply_fused.path_launches)
     job = dataclasses.replace(train_gpt.make_job(_moe_env()),
                               total_steps=total)
     with _moe_path(path, fault):
         rec, out, wall = _recorded_run(job, ckpt_dir, make_batch, every)
-    return rec, out, wall, dict(launches)
+    return rec, out, wall, dict(launches), dict(paths)
+
+
+def _off_vector_path(launches: dict, paths: dict) -> bool:
+    """Whether a B4 launch of a run took another than the 16-byte path."""
+    return paths != {"%s_%s" % (k, p): n if p == "vector" else 0
+                     for k, n in launches.items()
+                     for p in ("vector", "scalar")}
 
 
 def phase_train_gpt_moe(smi: str) -> dict:
@@ -1840,20 +1965,20 @@ def phase_train_gpt_moe(smi: str) -> dict:
                    for ref in ("dense", "plain")}
         del routes
         torch.cuda.reset_peak_memory_stats()
-        rec_a, out_a, wall_a, launches_a = _gpt_moe_run("kernels",
-                                                        dirs["a"])
+        rec_a, out_a, wall_a, launches_a, paths_a = _gpt_moe_run(
+            "kernels", dirs["a"])
         peak_a = torch.cuda.max_memory_allocated()
-        rec_p, _, _, launches_p = _gpt_moe_run("plain", "")
+        rec_p, _, _, launches_p, _ = _gpt_moe_run("plain", "")
         torch.cuda.reset_peak_memory_stats()
-        rec_b, _, wall_b, launches_b = _gpt_moe_run("dense", "")
+        rec_b, _, wall_b, launches_b, _ = _gpt_moe_run("dense", "")
         peak_b = torch.cuda.max_memory_allocated()
         saved = "step_%012d" % MOE_SAVE_AT
         os.makedirs(dirs["c"])
         shutil.copytree(os.path.join(dirs["a"], saved),
                         os.path.join(dirs["c"], saved),
                         copy_function=os.link)
-        rec_c, out_c, _, launches_c = _gpt_moe_run("kernels", dirs["c"],
-                                                   every=10 * MOE_STEPS)
+        rec_c, out_c, _, launches_c, paths_c = _gpt_moe_run(
+            "kernels", dirs["c"], every=10 * MOE_STEPS)
         planted_losses = {
             fault: _gpt_moe_run("kernels", "", fault=fault,
                                 total=MOE_PLANTED_STEPS)[0].host_losses()
@@ -1913,7 +2038,10 @@ def phase_train_gpt_moe(smi: str) -> dict:
             abs(x - y) for x, y in zip(la[MOE_SAVE_AT:], lc)),
         "launches": {"kernels": launches_a, "plain": launches_p,
                      "dense": launches_b, "resumed": launches_c,
-                     "expected_kernels": expected, "per_step": per_step},
+                     "expected_kernels": expected, "per_step": per_step,
+                     "by_variant_per_step": moe_variant_launches(
+                         cfg, remat=True)},
+        "path_launches": {"kernels": paths_a, "resumed": paths_c},
         "resume_steps": out_c.get("resume_steps"),
         "step_ms_steps_2_4": {"kernels": fused_ms, "dense": dense_ms},
         "step_ms_median": 1e3 * median_s,
@@ -1930,6 +2058,7 @@ def phase_train_gpt_moe(smi: str) -> dict:
         "idle_share_steps_2_4": 1.0 - busy_ms / (1e3 * median_s),
         "moe_kernel_ms_per_step": {k: kernel_ms[k]
                                    for k in MOE_PROFILE_NAMES},
+        "b4_ms_per_step": sum(kernel_ms[k] for k in MOE_PROFILE_NAMES),
         "model_flops_per_step": model_flops,
         "mfu_bf16": model_flops / median_s / BF16_FLOPS,
     }
@@ -1993,6 +2122,11 @@ def phase_train_gpt_moe(smi: str) -> dict:
                       for k, n in per_step.items()}:
         problems.append("the resumed run launched %r, expected %r per step"
                         % (launches_c, per_step))
+    for run, launches, paths in (("kernel", launches_a, paths_a),
+                                 ("resumed", launches_c, paths_c)):
+        if _off_vector_path(launches, paths):
+            problems.append("a B4 launch of the %s run left the 16-byte "
+                            "path: %r" % (run, paths))
     if len(la) != MOE_STEPS or len(lb) != MOE_STEPS or \
             out_a["steps"] != MOE_STEPS:
         problems.append("runs did not take %d steps" % MOE_STEPS)
@@ -2043,8 +2177,8 @@ def phase_train_bert(smi: str) -> dict:
     BERT_FIXED_STEPS on one fixed batch, and a profiled window. Then
     BERT-base-MoE at the JAX bench's setup for BERT_MOE_STEPS steps on
     the kernels, on their plain versions run on the card (losses bitwise
-    equal to the kernels') and on the dense formulation. Deterministic
-    algorithms on."""
+    equal to the kernels') and on the dense formulation, and a profiled
+    window on the kernels. Deterministic algorithms on."""
     env = {"TPUJOB_BATCH": str(BERT_BATCH), "TPUJOB_SEQ": str(BERT_SEQ),
            "TPUJOB_STEPS": str(BERT_STEPS)}
     cfg = dict(bert.BASE_CONFIG, moe_experts=MOE_EXPERTS, moe_every=2)
@@ -2067,12 +2201,19 @@ def phase_train_bert(smi: str) -> dict:
         moe_runs = {}
         for path in MOE_PATHS:
             launches = _zero(moe.moe_apply_fused.launches)
+            paths = _zero(moe.moe_apply_fused.path_launches)
             torch.cuda.reset_peak_memory_stats()
             with _moe_path(path):
                 rec, _, wall = _recorded_run(moe_job, "")
             moe_runs[path] = {
                 "rec": rec, "wall_s": wall, "launches": dict(launches),
+                "paths": dict(paths),
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        with _moe_path("kernels"):
+            moe_profile = _step_profile(moe_job, moe_job.init_params(gen),
+                                        moe_job.make_batch(gen, 0),
+                                        MOE_PROFILE_NAMES, warm=2, steps=3)
     ld, lf = rec_d.host_losses(), rec_f.host_losses()
     base_ms = rec_d.forward_gaps_ms(2, BERT_STEPS - 1)
     lm = {k: r["rec"].host_losses() for k, r in moe_runs.items()}
@@ -2113,6 +2254,12 @@ def phase_train_bert(smi: str) -> dict:
             "step_ms_median": {k: statistics.median(v)
                                for k, v in moe_ms.items()},
             "launches": {k: r["launches"] for k, r in moe_runs.items()},
+            "path_launches": moe_runs["kernels"]["paths"],
+            "profile": moe_profile,
+            "b4_ms_per_step": sum(moe_profile["kernel_ms_per_step"].values()),
+            "idle_share_kernels": 1.0 - moe_profile[
+                "device_busy_ms_per_step"] / statistics.median(
+                    moe_ms["kernels"]),
             "expected_kernels": expected, "per_step": per_step,
             "peak_gb": {k: r["peak_gb"] for k, r in moe_runs.items()},
             "wall_s": {k: r["wall_s"] for k, r in moe_runs.items()}},
@@ -2136,6 +2283,10 @@ def phase_train_bert(smi: str) -> dict:
     if moe_runs["kernels"]["launches"] != expected:
         problems.append("BERT-MoE launches %r, expected %r"
                         % (moe_runs["kernels"]["launches"], expected))
+    if _off_vector_path(moe_runs["kernels"]["launches"],
+                        moe_runs["kernels"]["paths"]):
+        problems.append("a B4 launch of the BERT-MoE kernel run left the "
+                        "16-byte path: %r" % moe_runs["kernels"]["paths"])
     for path in ("plain", "dense"):
         if any(moe_runs[path]["launches"].values()):
             problems.append("the %s BERT-MoE run launched %r"
@@ -2188,7 +2339,7 @@ def main() -> int:
             "library_ms": row["library_ms"]})
     moe_rows = []
     for name, key, replaces in MOE_KERNELS:
-        row = kernels["moe"]["timing"][key]
+        row = kernels["moe"]["timing"][MOE_MAIN[key]]
         moe_rows.append({
             "name": name, "route": "cuda", "source": MOE_SOURCE,
             "replaces": replaces,

@@ -16,8 +16,8 @@ formulations:
   beside them (:func:`_plain_dispatch`, :func:`_plain_combine`). On a CUDA
   tensor the wrappers launch the kernel or raise. Dispatch's backward is
   the combine kernel with no gate; combine's backward is the dispatch
-  kernel over the gate-weighted cotangent plus, for the gate, a rowwise
-  dot with the ungated combine.
+  kernel over the cotangent with the gate as its per-token scale plus,
+  for the gate, a rowwise dot with the ungated combine.
 
 ``moe_apply(fused=None)`` reads ``TPUJOB_MOE_FUSED=1`` at call time and
 takes the fused path only where :func:`fused_supports` holds.
@@ -168,17 +168,20 @@ def _kept(choice: torch.Tensor, pos: torch.Tensor, n_experts: int,
 
 
 def _plain_dispatch(x: torch.Tensor, choice: torch.Tensor, pos: torch.Tensor,
-                    n_experts: int, capacity: int,
-                    out_dtype: torch.dtype) -> torch.Tensor:
-    """The plain version of kernel B4a: ``expert_in[e, c] = x_t`` for the
-    kept token with ``choice_t = e, pos_t = c``, zeros elsewhere, in
-    ``out_dtype`` (each element one conversion). ``x [T, D]`` ->
+                    n_experts: int, capacity: int, out_dtype: torch.dtype,
+                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of kernel B4a: ``expert_in[e, c] = scale_t *
+    x_t`` for the kept token with ``choice_t = e, pos_t = c``, zeros
+    elsewhere, in ``out_dtype`` (each element one fp32 product, then one
+    conversion; ``scale=None`` copies the row). ``x [T, D]`` ->
     ``[E, capacity, D]``. Dropped tokens write a spare row that is cut
     off."""
     d = x.shape[1]
     slots = n_experts * capacity
     keep = _kept(choice, pos, n_experts, capacity)
     index = torch.where(keep, choice * capacity + pos, slots)
+    if scale is not None:
+        x = x.float() * scale.float()[:, None]
     out = torch.zeros((slots + 1, d), dtype=out_dtype, device=x.device)
     out.index_put_((index,), x.to(out_dtype))
     return out[:slots].reshape(n_experts, capacity, d)
@@ -206,9 +209,23 @@ def _plain_combine(expert_out: torch.Tensor, choice: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _KERNEL_DTYPES = {F32: 0, BF16: 1}
-#: (input type, output type) pairs each kernel takes
+#: (input type, output type) pairs each kernel takes, each with or without
+#: its per-token fp32 factor (dispatch's ``scale``, combine's ``gate``).
+#: Combine's backward dispatches its cotangent (combine's output type)
+#: into combine's input type
 DISPATCH_TYPES = frozenset({(BF16, BF16), (F32, BF16), (F32, F32)})
 COMBINE_TYPES = frozenset({(BF16, BF16), (BF16, F32), (F32, F32)})
+#: elements of one chunk of the kernels' vector path: 16 bytes of bf16,
+#: two 16-byte accesses of fp32
+VECTOR = 8
+
+
+def vector_path(dim: int, *rows: torch.Tensor) -> bool:
+    """Whether a B4 launch over rows of ``dim`` elements takes the
+    kernel's 16-byte path: ``dim`` a whole number of chunks and the data
+    of every row operand (input and output) 16-byte aligned. Otherwise
+    the same kernel takes its scalar path."""
+    return dim % VECTOR == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
 
 
 def _routing_operands(choice: torch.Tensor, pos: torch.Tensor, tokens: int,
@@ -220,6 +237,23 @@ def _routing_operands(choice: torch.Tensor, pos: torch.Tensor, tokens: int,
                              "%r on %s" % (name, tokens, device, t.dtype,
                                            tuple(t.shape), t.device))
     return choice.contiguous(), pos.contiguous()
+
+
+def _token_factor(kernel: str, name: str, v: Optional[torch.Tensor],
+                  tokens: int, device: torch.device
+                  ) -> Optional[torch.Tensor]:
+    """An fp32 ``[tokens]`` factor made contiguous, or None."""
+    if v is None:
+        return None
+    if v.dtype != F32 or tuple(v.shape) != (tokens,) or v.device != device:
+        raise ValueError("%s %s must be fp32 [%d] on %s, got %s %r on %s"
+                         % (kernel, name, tokens, device, v.dtype,
+                            tuple(v.shape), v.device))
+    return v.contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _check_types(kernel: str, pairs, in_dtype: torch.dtype,
@@ -237,28 +271,36 @@ def _check_sizes(n_experts: int, capacity: int, dim: int) -> None:
                          % (n_experts, capacity, dim))
 
 
-def _call(fn_name: str, argtypes, args, device: torch.device) -> None:
+def _call(fn_name: str, argtypes, args, vec: bool,
+          device: torch.device) -> None:
     """Launch ``moe_<fn_name>`` of ``csrc/moe.cu`` on the current stream
-    of ``device``; raises on a non-zero CUDA error code."""
+    of ``device`` (``vec``: its 16-byte path); raises on a non-zero CUDA
+    error code."""
     fn = getattr(_kernels.load("moe"), "moe_" + fn_name)
-    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    fn.argtypes = list(argtypes) + [_I, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+        err = fn(*args, int(vec), stream)
     if err != 0:
         raise RuntimeError("moe_%s kernel launch failed: CUDA error %d"
                            % (fn_name, err))
     moe_apply_fused.launches[fn_name] += 1
+    moe_apply_fused.path_launches[
+        "%s_%s" % (fn_name, "vector" if vec else "scalar")] += 1
 
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def _launch_dispatch(x: torch.Tensor, choice: torch.Tensor, pos: torch.Tensor,
-                     n_experts: int, capacity: int,
-                     out_dtype: torch.dtype) -> torch.Tensor:
-    """Kernel B4a: ``x [T, D]`` -> ``[E, capacity, D]`` in ``out_dtype``."""
+                     n_experts: int, capacity: int, out_dtype: torch.dtype,
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B4a: ``x [T, D]`` -> ``[E, capacity, D]`` in ``out_dtype``,
+    each kept row times ``scale`` (fp32 ``[T]``) or, with None, copied.
+    Two device operations: the slot table's build (into scratch that is
+    never cleared: the gather checks each entry), then the gather that
+    writes every output row once."""
     if x.dim() != 2:
         raise ValueError("moe_dispatch takes x [T, D], got %r"
                          % (tuple(x.shape),))
@@ -266,14 +308,27 @@ def _launch_dispatch(x: torch.Tensor, choice: torch.Tensor, pos: torch.Tensor,
     t, d = x.shape
     _check_sizes(n_experts, capacity, d)
     choice, pos = _routing_operands(choice, pos, t, x.device)
-    x = x.contiguous()
+    scale = _token_factor("moe_dispatch", "scale", scale, t, x.device)
+    table = torch.empty(n_experts * capacity, dtype=torch.int32,
+                        device=x.device)
     out = torch.empty((n_experts, capacity, d), dtype=out_dtype,
                       device=x.device)
-    _call("dispatch", (_P, _P, _P, _P, _LL, _LL, _I, _LL, _I, _I),
-          (x.data_ptr(), choice.data_ptr(), pos.data_ptr(), out.data_ptr(),
-           t, d, n_experts, capacity, _KERNEL_DTYPES[x.dtype],
-           _KERNEL_DTYPES[out_dtype]), x.device)
+    _dispatch_into(x.contiguous(), choice, pos, scale, table, out)
     return out
+
+
+def _dispatch_into(x: torch.Tensor, choice: torch.Tensor, pos: torch.Tensor,
+                   scale: Optional[torch.Tensor], table: torch.Tensor,
+                   out: torch.Tensor) -> None:
+    """The launch of :func:`_launch_dispatch` on operands it has checked:
+    contiguous ``x``, routing and ``scale``, the slot table (int32
+    ``[E * C]``, any content) and ``out [E, C, D]``."""
+    (t, d), (n_experts, capacity, _) = x.shape, out.shape
+    _call("dispatch", (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _LL, _I, _I),
+          (x.data_ptr(), choice.data_ptr(), pos.data_ptr(), _ptr(scale),
+           table.data_ptr(), out.data_ptr(), t, d, n_experts, capacity,
+           _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[out.dtype]),
+          vector_path(d, x, out), x.device)
 
 
 def _launch_combine(expert_out: torch.Tensor, choice: torch.Tensor,
@@ -290,19 +345,14 @@ def _launch_combine(expert_out: torch.Tensor, choice: torch.Tensor,
     t = choice.shape[0]
     dev = expert_out.device
     choice, pos = _routing_operands(choice, pos, t, dev)
-    if gate is not None:
-        if gate.dtype != F32 or tuple(gate.shape) != (t,) or gate.device != dev:
-            raise ValueError("moe_combine gate must be fp32 [%d] on %s, got "
-                             "%s %r on %s" % (t, dev, gate.dtype,
-                                              tuple(gate.shape), gate.device))
-        gate = gate.contiguous()
+    gate = _token_factor("moe_combine", "gate", gate, t, dev)
     expert_out = expert_out.contiguous()
     out = torch.empty((t, d), dtype=out_dtype, device=dev)
     _call("combine", (_P, _P, _P, _P, _P, _LL, _LL, _I, _LL, _I, _I),
           (expert_out.data_ptr(), choice.data_ptr(), pos.data_ptr(),
-           0 if gate is None else gate.data_ptr(), out.data_ptr(), t, d, e,
-           capacity, _KERNEL_DTYPES[expert_out.dtype],
-           _KERNEL_DTYPES[out_dtype]), dev)
+           _ptr(gate), out.data_ptr(), t, d, e, capacity,
+           _KERNEL_DTYPES[expert_out.dtype], _KERNEL_DTYPES[out_dtype]),
+          vector_path(d, expert_out, out), dev)
     return out
 
 
@@ -315,15 +365,19 @@ def _device_of(x: torch.Tensor) -> str:
 
 def dispatch(x: torch.Tensor, choice: torch.Tensor, pos: torch.Tensor,
              n_experts: int, capacity: int,
-             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+             out_dtype: Optional[torch.dtype] = None,
+             scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token rows ``x [T, D]`` into expert slots ``[E, capacity, D]``
-    (``out_dtype`` defaults to x's): kernel B4a for CUDA tensors, counted
-    in ``moe_apply_fused.launches["dispatch"]``; the plain version for CPU
+    (``out_dtype`` defaults to x's), each times ``scale`` (fp32 ``[T]``;
+    None: no product): kernel B4a for CUDA tensors, counted in
+    ``moe_apply_fused.launches["dispatch"]``; the plain version for CPU
     tensors. Not differentiable (see :func:`moe_apply_fused`)."""
     out_dtype = out_dtype or x.dtype
     if _device_of(x) == "cpu":
-        return _plain_dispatch(x, choice, pos, n_experts, capacity, out_dtype)
-    return _launch_dispatch(x, choice, pos, n_experts, capacity, out_dtype)
+        return _plain_dispatch(x, choice, pos, n_experts, capacity, out_dtype,
+                               scale)
+    return _launch_dispatch(x, choice, pos, n_experts, capacity, out_dtype,
+                            scale)
 
 
 def combine(expert_out: torch.Tensor, choice: torch.Tensor,
@@ -364,10 +418,13 @@ class _Dispatch(torch.autograd.Function):
 
 class _Combine(torch.autograd.Function):
     """``out_t = gate_t * expert_out[choice_t, pos_t]`` (zero for dropped
-    tokens) in ``out_dtype``. Backward, as the reference's: the
-    cotangent for ``expert_out`` is the dispatch kernel over ``dout32 *
-    gate`` (fp32 in, expert_out's type out); the gate's is the rowwise dot
-    of ``dout32`` with the ungated combine, written in fp32."""
+    tokens) in ``out_dtype``. Backward, the reference's function: the
+    cotangent for ``expert_out`` is the dispatch of ``dout32 * gate``
+    into expert_out's type, fused: the dispatch kernel reads ``dout`` in
+    its own type and takes the gate as its scale (``dout`` to fp32 is
+    exact, and the one fp32 product and one conversion are the same, so
+    the bits are too); the gate's is the rowwise dot of ``dout32`` with
+    the ungated combine, written in fp32."""
 
     @staticmethod
     def forward(ctx, expert_out, gate, choice, pos, capacity: int,
@@ -379,16 +436,14 @@ class _Combine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         expert_out, gate, choice, pos = ctx.saved_tensors
-        dout32 = dout.float()
         d_eo = dgate = None
         if ctx.needs_input_grad[0]:
-            d_eo = dispatch(dout32 * gate[:, None], choice, pos,
-                            expert_out.shape[0], ctx.capacity,
-                            expert_out.dtype)
+            d_eo = dispatch(dout, choice, pos, expert_out.shape[0],
+                            ctx.capacity, expert_out.dtype, scale=gate)
         if ctx.needs_input_grad[1]:
             ungated = combine(expert_out, choice, pos, None, ctx.capacity,
                               F32)
-            dgate = torch.sum(dout32 * ungated, dim=-1)
+            dgate = torch.sum(dout.float() * ungated, dim=-1)
         return d_eo, dgate, None, None, None, None
 
 
@@ -413,3 +468,6 @@ def moe_apply_fused(params: Dict, x: torch.Tensor,
 
 #: kernel launches since the last reset, by kernel (chip_smoke.py reads it)
 moe_apply_fused.launches = {"dispatch": 0, "combine": 0}
+#: the same launches by the kernel's path (:func:`vector_path`)
+moe_apply_fused.path_launches = {"dispatch_vector": 0, "dispatch_scalar": 0,
+                                 "combine_vector": 0, "combine_scalar": 0}

@@ -21,11 +21,19 @@ the kernels' plain versions (CPU tensors). In fp32:
   their output rows and input-gradient rows are exact zeros;
 * bf16 within 0.05, as ``tests/test_fused_ops.py`` bounds it.
 
+Combine's backward dispatches the cotangent with the gate as the
+dispatch's per-token scale: the scaled plain dispatch is held bitwise to
+the dispatch of the fp32 product and to JAX's ``_dispatch_call`` on
+``dout32 * gate`` (the reference's ``_fused_combine_bwd``).
+
 The ``cuda``-marked tests skip without a card; on one
 (``python -m pytest tests/test_torch_moe.py -m cuda``) they hold the
 kernels against the plain versions bitwise over every type pair they
-take, a ragged token count and dropped tokens, and the autograd Functions
-against autograd through the plain versions.
+take, with and without the gate or scale, on the 16-byte path (D = 768,
+and D = 200: 25 chunks, fewer than a warp's lanes) and the scalar path
+(D = 203, and a misaligned view), at T = 0 and 1, with every token
+dropped, into outputs that were NaN before the call, and the autograd
+Functions against autograd through the plain versions.
 """
 
 import numpy as np
@@ -196,6 +204,100 @@ def test_plain_kernels_match_the_one_hot_contraction(dtype):
     assert not got_out[~keep].any()
 
 
+@pytest.mark.parametrize("types", sorted(tmoe.DISPATCH_TYPES, key=str))
+def test_scaled_plain_dispatch_is_the_dispatch_of_the_product(types):
+    """``scale`` multiplies each kept row in fp32 before the one
+    conversion: bitwise the dispatch of ``x.float() * scale``."""
+    tin, tout = types
+    params, x = _setup(experts=2, b=2, s=32)
+    _, choice, pos, cap, _ = tmoe._route(_port(params), torch.from_numpy(x),
+                                         0.5)
+    t, d = choice.shape[0], x.shape[-1]
+    xt = torch.from_numpy(x.reshape(t, d)).to(tin)
+    scale = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        t, dtype=np.float32))
+    got = tmoe._plain_dispatch(xt, choice, pos, 2, cap, tout, scale)
+    want = tmoe._plain_dispatch(xt.float() * scale[:, None], choice, pos, 2,
+                                cap, tout)
+    assert got.dtype == tout and torch.equal(got, want)
+    assert torch.equal(tmoe.dispatch(xt, choice, pos, 2, cap, tout,
+                                     scale=scale), got)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_scaled_dispatch_is_bitwise_equal_to_jax_dispatch_of_dout_times_gate(
+        dtype):
+    """The fused backward's dispatch (the cotangent in its own type, the
+    gate as the scale) against the reference's ``_fused_combine_bwd``
+    composition: JAX's Pallas ``_dispatch_call`` in interpret mode on
+    ``dout32 * gate``, into ``dtype``."""
+    _, jnp, jmoe = _jax()
+    params, x = _setup()
+    (gate, choice, pos, cap, cpad, t), (c_rep, p_rep, _) = \
+        _jax_kernel_case(params, x)
+    e, d = params["wi"].shape[0], x.shape[-1]
+    dout = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (t, d), dtype=np.float32)).to(dtype)
+    dout32 = dout.float().numpy()
+    jdtype = jnp.float32 if dtype == F32 else jnp.bfloat16
+    want = np.asarray(jmoe._dispatch_call(
+        jnp.asarray(dout32) * gate[:, None], c_rep, p_rep, e, cap, cpad, t,
+        True, jdtype).astype(jnp.float32))
+    tc = torch.from_numpy(np.array(choice)).long()
+    tpos = torch.from_numpy(np.array(pos)).long()
+    got = tmoe.dispatch(dout, tc, tpos, e, cap, dtype,
+                        scale=torch.from_numpy(np.array(gate)))
+    assert got.dtype == dtype
+    assert np.array_equal(got.float().numpy(), want[:, :cap])
+    assert not want[:, cap:].any()
+
+
+def test_path_helper_takes_the_vector_path_for_whole_aligned_chunks():
+    """16-byte chunks of 8 elements: D = 768 (96 chunks) and D = 200 (25)
+    take the vector path, D = 203 and a view 2 or 4 bytes off the
+    allocation's 16-byte alignment take the scalar path."""
+    for dtype in (F32, BF16):
+        x = torch.zeros((4, 768), dtype=dtype)
+        assert tmoe.vector_path(768, x)
+        assert tmoe.vector_path(768, x, torch.zeros((2, 3, 768)))
+        assert tmoe.vector_path(200, torch.zeros((4, 200), dtype=dtype))
+        assert not tmoe.vector_path(203, torch.zeros((4, 203), dtype=dtype))
+        flat = torch.zeros(4 * 768 + 8, dtype=dtype)
+        view = flat[1:1 + 4 * 768].view(4, 768)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        assert not tmoe.vector_path(768, view)
+        assert not tmoe.vector_path(768, x, view)
+
+
+def test_combine_backward_dispatches_the_cotangent_scaled_by_the_gate(
+        monkeypatch):
+    """``_Combine.backward`` hands the bf16 cotangent to the dispatch with
+    the gate as its scale (no ``[T, D]`` fp32 product is built), and
+    that dispatch is bitwise the dispatch of ``dout32 * gate``."""
+    params, x = _setup(experts=2, b=2, s=32)
+    seen = []
+    real = tmoe.dispatch
+
+    def spy(x, choice, pos, n_experts, capacity, out_dtype=None, scale=None):
+        out = real(x, choice, pos, n_experts, capacity, out_dtype, scale)
+        seen.append((x, choice, pos, n_experts, capacity, out_dtype, scale,
+                     out))
+        return out
+
+    monkeypatch.setattr(tmoe, "dispatch", spy)
+    tp = _port(params)
+    tx = torch.from_numpy(x).requires_grad_()
+    o, _ = tmoe.moe_apply_fused(tp, tx, capacity_factor=0.5, dtype=BF16)
+    torch.autograd.grad((o.float() ** 2).sum(), [tx])
+    assert len(seen) == 2 and seen[0][6] is None        # forward, backward
+    dout, choice, pos, e, cap, out_dtype, scale, got = seen[1]
+    assert dout.dtype == BF16 and out_dtype == BF16
+    assert scale is not None and scale.dtype == F32
+    want = tmoe._plain_dispatch(dout.float() * scale[:, None], choice, pos,
+                                e, cap, BF16)
+    assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # gradients
 # ---------------------------------------------------------------------------
@@ -359,12 +461,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _kernel_case(device, t=1000, d=200, e=8, factor=0.5, seed=0):
+def _kernel_case(device, t=1000, d=200, e=8, factor=0.5, seed=0,
+                 skew=False):
     """Routing of ``t`` tokens over ``e`` experts at ``factor``: random
     choices with positions from the cumulative count, as ``_route`` makes
-    them (capacity ``factor * t / e``, so some tokens drop)."""
+    them (capacity ``factor * t / e``, so some tokens drop). ``skew``
+    sends every second token to expert 0, so that at ``factor`` 1 expert
+    0 drops tokens and the others leave slots empty."""
     rng = np.random.default_rng(seed)
     choice = torch.from_numpy(rng.integers(0, e, t)).to(device)
+    if skew:
+        choice[::2] = 0
     onehot = torch.nn.functional.one_hot(choice, e)
     pos = (torch.cumsum(onehot, 0) * onehot - 1).max(-1).values
     cap = max(1, int(factor * t / e))
@@ -374,38 +481,196 @@ def _kernel_case(device, t=1000, d=200, e=8, factor=0.5, seed=0):
     return x.to(device), eo.to(device), choice, pos, cap, gate
 
 
+#: D of the kernel cases: 96 and 25 chunks (vector path), 203 (scalar)
+CASE_DIMS = (768, 200, 203)
+
+
+def _path_counts():
+    return dict(tmoe.moe_apply_fused.path_launches)
+
+
+def _path(kernel, d):
+    """The path count a launch of ``kernel`` on aligned rows of ``d``
+    elements adds to."""
+    return "%s_%s" % (kernel, "vector" if d % tmoe.VECTOR == 0 else "scalar")
+
+
+def _took(before, key):
+    """The path counts since ``before`` are one launch, counted at
+    ``key``."""
+    now = tmoe.moe_apply_fused.path_launches
+    return {k: now[k] - before[k] for k in now} == {
+        k: int(k == key) for k in now}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", CASE_DIMS)
+@pytest.mark.parametrize("scaled", [False, True])
 @pytest.mark.parametrize("types", sorted(tmoe.DISPATCH_TYPES, key=str))
 @pytest.mark.parametrize("t", [1000, 16384])
-def test_cuda_dispatch_is_bitwise_equal_to_plain(cuda_device, types, t):
-    x, _, choice, pos, cap, _ = _kernel_case(cuda_device, t=t)
+def test_cuda_dispatch_is_bitwise_equal_to_plain(cuda_device, types, t,
+                                                 scaled, d):
+    x, _, choice, pos, cap, gate = _kernel_case(cuda_device, t=t, d=d)
     x = x.to(types[0])
+    scale = gate - 0.5 if scaled else None
     before = tmoe.moe_apply_fused.launches["dispatch"]
-    got = tmoe._launch_dispatch(x, choice, pos, 8, cap, types[1])
-    want = tmoe._plain_dispatch(x, choice, pos, 8, cap, types[1])
+    paths = _path_counts()
+    got = tmoe._launch_dispatch(x, choice, pos, 8, cap, types[1], scale)
+    want = tmoe._plain_dispatch(x, choice, pos, 8, cap, types[1], scale)
     torch.cuda.synchronize()
     assert tmoe.moe_apply_fused.launches["dispatch"] == before + 1
+    assert _took(paths, _path("dispatch", d))
     assert got.dtype == types[1] and torch.equal(got, want)
     assert bool((pos >= cap).any())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", CASE_DIMS)
 @pytest.mark.parametrize("types", sorted(tmoe.COMBINE_TYPES, key=str))
 @pytest.mark.parametrize("gated", [False, True])
-def test_cuda_combine_is_bitwise_equal_to_plain(cuda_device, types, gated):
-    _, eo, choice, pos, cap, gate = _kernel_case(cuda_device, t=999)
+def test_cuda_combine_is_bitwise_equal_to_plain(cuda_device, types, gated,
+                                                d):
+    _, eo, choice, pos, cap, gate = _kernel_case(cuda_device, t=999, d=d)
     eo = eo.to(types[0])
     g = gate if gated else None
+    paths = _path_counts()
     got = tmoe._launch_combine(eo, choice, pos, g, cap, types[1])
     want = tmoe._plain_combine(eo, choice, pos, g, cap, types[1])
     torch.cuda.synchronize()
+    assert _took(paths, _path("combine", d))
     assert got.dtype == types[1] and torch.equal(got, want)
     assert not got[pos >= cap].any()
 
 
-def _plain_dispatch(x, choice, pos, n_experts, capacity, out_dtype=None):
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_cuda_misaligned_view_takes_the_scalar_path(cuda_device, dtype):
+    """A contiguous view one element past a 16-byte boundary: both
+    kernels take the scalar path on it and stay bitwise equal to plain."""
+    x, eo, choice, pos, cap, gate = _kernel_case(cuda_device, d=768)
+    t, d = x.shape
+    flat = torch.zeros(t * d + 8, dtype=dtype, device=cuda_device)
+    xv = flat[1:1 + t * d].view(t, d)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16
+    paths = _path_counts()
+    got = tmoe._launch_dispatch(xv, choice, pos, 8, cap, dtype, gate)
+    want = tmoe._plain_dispatch(xv, choice, pos, 8, cap, dtype, gate)
+    torch.cuda.synchronize()
+    assert _took(paths, "dispatch_scalar")
+    assert torch.equal(got, want)
+
+    e_flat = torch.zeros(eo.numel() + 8, dtype=dtype, device=cuda_device)
+    ev = e_flat[1:1 + eo.numel()].view(eo.shape)
+    ev.copy_(eo)
+    paths = _path_counts()
+    got = tmoe._launch_combine(ev, choice, pos, gate, cap, dtype)
+    want = tmoe._plain_combine(ev, choice, pos, gate, cap, dtype)
+    torch.cuda.synchronize()
+    assert _took(paths, "combine_scalar")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["T=0", "T=1", "all_dropped"])
+def test_cuda_edge_token_counts(cuda_device, case):
+    """No token, one token, and every token dropped: dispatch writes an
+    all-zero ``[E, C, D]`` where no token is kept, combine a zero row for
+    each dropped token."""
+    t = {"T=0": 0, "T=1": 1, "all_dropped": 1000}[case]
+    x, _, choice, pos, cap, gate = _kernel_case(cuda_device, t=t, d=768)
+    if case == "all_dropped":
+        pos = pos + cap
+    eo = torch.randn((8, cap, 768), device=cuda_device)
+    for dtype in (F32, BF16):
+        got = tmoe._launch_dispatch(x.to(dtype), choice, pos, 8, cap, dtype,
+                                    gate)
+        want = tmoe._plain_dispatch(x.to(dtype), choice, pos, 8, cap, dtype,
+                                    gate)
+        out = tmoe._launch_combine(eo.to(dtype), choice, pos, gate, cap,
+                                   dtype)
+        ref = tmoe._plain_combine(eo.to(dtype), choice, pos, gate, cap,
+                                  dtype)
+        torch.cuda.synchronize()
+        assert got.shape == (8, cap, 768) and torch.equal(got, want)
+        assert out.shape == (t, 768) and torch.equal(out, ref)
+    if case != "T=1":
+        assert not got.any() and not out.any()
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_ignores_a_stale_slot_table(cuda_device):
+    """Dispatch never clears its slot table: each entry counts only if its
+    token's own routing is kept at that slot. The launch is given a table
+    that holds another routing's entries (every kept token one slot on,
+    ids past T, negative ids); the gather must still be bitwise plain,
+    and the entries it had to reject are still there after it."""
+    x, _, choice, pos, cap, gate = _kernel_case(cuda_device, t=1000, d=768,
+                                                factor=1.0, skew=True)
+    keep = pos < cap
+    slots = 8 * cap
+    owned = torch.zeros(slots, dtype=torch.bool, device=cuda_device)
+    owned[(choice * cap + pos)[keep]] = True
+    stale = torch.full((slots,), 999_999, dtype=torch.int32,
+                       device=cuda_device)
+    stale[::3] = -7
+    tokens = torch.arange(1000, device=cuda_device, dtype=torch.int32)
+    stale[(choice * cap + pos + 1)[keep] % slots] = tokens[keep]
+    assert bool((~owned & (stale >= 0) & (stale < 1000)).any())
+    assert bool((~owned & (stale < 0)).any())
+    for scale in (None, gate):
+        table = stale.clone()
+        out = torch.empty((8, cap, 768), dtype=F32, device=cuda_device)
+        tmoe._dispatch_into(x, choice, pos, scale, table, out)
+        want = tmoe._plain_dispatch(x, choice, pos, 8, cap, F32, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert torch.equal(table[~owned], stale[~owned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 203])
+def test_cuda_outputs_are_written_whole(cuda_device, monkeypatch, d):
+    """With deterministic algorithms and ``fill_uninitialized_memory``
+    on, ``torch.empty`` fills the kernels' outputs with NaN, and
+    dispatch's slot table with INT_MAX, before the launch: every empty
+    slot and every dropped row must come back +0.0, so each kernel writes
+    its whole output (dispatch has no zero fill of its own), and the
+    gather rejects a table entry that names no token."""
+    x, eo, choice, pos, cap, gate = _kernel_case(cuda_device, d=d,
+                                                 factor=1.0, skew=True)
+    monkeypatch.setattr(torch.utils.deterministic,
+                        "fill_uninitialized_memory", True)
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert torch.isnan(torch.empty(4, device=cuda_device)).all()
+        for dtype in (F32, BF16):
+            got = tmoe._launch_dispatch(x.to(dtype), choice, pos, 8, cap,
+                                        dtype, gate)
+            out = tmoe._launch_combine(eo.to(dtype), choice, pos, gate,
+                                       cap, dtype)
+            torch.cuda.synchronize()
+            slots = torch.zeros((8, cap), dtype=torch.bool,
+                                device=cuda_device)
+            keep = pos < cap
+            slots[choice[keep], pos[keep]] = True
+            assert bool((~slots).any()) and bool((~keep).any())
+            for rows in (got[~slots], out[~keep]):
+                assert not torch.isnan(rows).any()
+                assert not rows.any() and not torch.signbit(rows).any()
+            assert torch.equal(got, tmoe._plain_dispatch(
+                x.to(dtype), choice, pos, 8, cap, dtype, gate))
+            assert torch.equal(out, tmoe._plain_combine(
+                eo.to(dtype), choice, pos, gate, cap, dtype))
+    finally:
+        torch.use_deterministic_algorithms(saved)
+
+
+def _plain_dispatch(x, choice, pos, n_experts, capacity, out_dtype=None,
+                    scale=None):
     return tmoe._plain_dispatch(x, choice, pos, n_experts, capacity,
-                                out_dtype or x.dtype)
+                                out_dtype or x.dtype, scale)
 
 
 def _plain_combine(eo, choice, pos, gate, capacity, out_dtype=None):
