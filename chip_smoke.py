@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the five ported paths:
+path. Then it drives the six ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -29,7 +29,13 @@ path. Then it drives the five ported paths:
   two planted faults; gates in ``phase_train_gpt_moe``;
 * train_bert: BERT-base through ``examples/train_bert.py``'s job, and
   BERT-base-MoE at the JAX bench's setup on the kernels, on their plain
-  versions and dense; gates in ``phase_train_bert``.
+  versions and dense; gates in ``phase_train_bert``;
+* train_dp: data parallelism, ResNet-50 over a process group of one on
+  NCCL (every collective of the path launched on the card), then two
+  worker processes sharing the card over gloo, started through
+  ``python -m paddle_operator_tpu_torch.launch``, training ResNet-50 and
+  GPT-2 small (2 layers) against one process, with a planted fault;
+  gates in ``phase_train_dp``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -53,11 +59,12 @@ import time
 import numpy as np
 import torch
 
-from paddle_operator_tpu_torch import bridge, testing
+from paddle_operator_tpu_torch import bridge, dp_check, testing
 from paddle_operator_tpu_torch.examples import train_bert, train_gpt
 from paddle_operator_tpu_torch.models import bert, gpt, resnet
 from paddle_operator_tpu_torch.ops import _kernels, attention, moe, optim
-from paddle_operator_tpu_torch.parallel import build_train_step
+from paddle_operator_tpu_torch.parallel import build_train_step, collectives
+from paddle_operator_tpu_torch.parallel.mesh import make_mesh
 from paddle_operator_tpu_torch.runner import TrainJob, run_training
 from paddle_operator_tpu_torch.serving import (
     ContinuousBatcher, Request, RequestQueue, ServingEngine)
@@ -938,7 +945,8 @@ class _StepRecorder:
         return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
 
-def _train_run(opt, total: int, ckpt_dir: str, make_batch=None):
+def _train_run(opt, total: int, ckpt_dir: str, make_batch=None,
+               **job_kw):
     rec = _StepRecorder()
     job = TrainJob(
         init_params=lambda gen: resnet.init(gen, DEPTH, CLASSES),
@@ -946,7 +954,8 @@ def _train_run(opt, total: int, ckpt_dir: str, make_batch=None):
         make_batch=make_batch or (lambda gen, step: resnet.synthetic_batch(
             gen, BATCH, IMAGE, CLASSES)),
         merge_stats=resnet.merge_stats, total_steps=total, log_every=10,
-        checkpoint_every=10, checkpoint_dir=ckpt_dir, seed=0, device=DEVICE)
+        checkpoint_every=10, checkpoint_dir=ckpt_dir, seed=0, device=DEVICE,
+        **job_kw)
     t0 = time.perf_counter()
     out = run_training(job)
     rec.end = _event()
@@ -2296,6 +2305,290 @@ def phase_train_bert(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_dp: data parallelism, over NCCL at world 1 and two gloo workers
+# ---------------------------------------------------------------------------
+
+#: kernels NCCL launches for a collective, matched by substring: at world
+#: 1 an AVG all-reduce is NCCL's one-rank kernel (``oneRankReduce``; a SUM,
+#: a MAX or a broadcast launches nothing there), above it ``ncclDevKernel``
+NCCL_KERNEL_MARKS = ("oneRankReduce", "ncclDevKernel", "ncclKernel")
+#: the two-worker runs: ResNet-50 steps, GPT-2 small's layers and steps
+DP_RESNET_STEPS, DP_GPT_LAYERS, DP_GPT_STEPS = 5, dp_check.GPT_LAYERS, 3
+#: |loss(two workers) - loss(one process)| / loss allowed at each step.
+#: The two runs differ in rounding only: each worker convolves and
+#: multiplies its own block in bf16, and BatchNorm averages two halves'
+#: means. On an H100 80GB HBM3 at 700 W, ResNet-50 parted by 1.2e-3 at
+#: step 1 and 1.4e-3 at most over 5 steps, GPT-2 by 6.2e-7 over 3 (GPT's
+#: bound is train_gpt's loss class); rank 1 keeping its local gradients
+#: parted ResNet-50 by 1.0e-2
+DP_RESNET_RTOL = 5e-3
+DP_GPT_RTOL = 2e-5
+
+
+def _dp_collectives_per_step(params) -> dict:
+    """The collectives of one dp step, from the code: one mean a gradient
+    bucket (``collectives.bucket_plan`` over the leaves that get a
+    gradient: every parameter but BatchNorm's running stats), two a
+    BatchNorm layer (its statistics forward, their cotangent backward)
+    and one for the loss and metrics."""
+    flat = bridge.flatten(params)
+    grads = [t for k, t in flat.items()
+             if not k.endswith(("/mean", "/var"))]
+    bn = sum(1 for k in flat if k.endswith("/mean"))
+    buckets = len(collectives.bucket_plan(grads))
+    return {"grad_buckets": buckets, "bn_layers": bn, "metrics": 1,
+            "total": buckets + 2 * bn + 1}
+
+
+def _nccl_profile(mesh, warm: int = 2, steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` dp train steps (fused_sgd, one fixed
+    batch) on ``mesh``: NCCL kernels a step, their device ms, and the
+    device busy ms a step (union of kernel intervals)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    batch = resnet.synthetic_batch(gen, BATCH, IMAGE, CLASSES)
+    params = resnet.init(gen, DEPTH, CLASSES)
+    expected = _dp_collectives_per_step(params)
+    step_fn, state = build_train_step(
+        resnet.loss_fn, _sgd_opts("fused_sgd"), params, batch, mesh=mesh,
+        merge_stats=resnet.merge_stats)
+    del params
+    for _ in range(warm):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("nccl:"))
+    busy, end, nccl_n, nccl_us = 0.0, float("-inf"), 0, 0.0
+    for lo, hi, name in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+        if any(mark in name for mark in NCCL_KERNEL_MARKS):
+            nccl_n += 1
+            nccl_us += hi - lo
+    return {"expected_collectives_per_step": expected,
+            "nccl_kernels_per_step": nccl_n / steps,
+            "nccl_kernel_names": sorted({n[:90] for _, _, n in spans
+                                         if any(m in n for m in
+                                                NCCL_KERNEL_MARKS)}),
+            "nccl_ms_per_step": nccl_us / 1e3 / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "allreduce_share_of_busy": nccl_us / busy if busy else None}
+
+
+def _dp_workers(out: str) -> dict:
+    """Two workers through ``python -m paddle_operator_tpu_torch.launch``
+    on this one card, over gloo: ResNet-50 sound and with rank 1 keeping
+    its local gradients, GPT-2 small at DP_GPT_LAYERS layers, and an NCCL
+    group over the two (refused). Returns each scenario's lines by
+    rank."""
+    scenarios = [
+        {"kind": "run", "name": "resnet50", "model": "resnet50",
+         "steps": DP_RESNET_STEPS},
+        {"kind": "run", "name": "resnet50_skip_grad_allreduce",
+         "model": "resnet50", "steps": DP_RESNET_STEPS,
+         "fault": "skip_grad_allreduce"},
+        {"kind": "run", "name": "gpt", "model": "gpt2_2layers",
+         "steps": DP_GPT_STEPS},
+        {"kind": "nccl_pair", "name": "nccl_pair"}]
+    torch.cuda.empty_cache()
+    lines = dp_check.launch_workers({"out": out, "scenarios": scenarios},
+                                    world=2, backend="gloo", timeout=600)
+    by_name: dict = {}
+    for rank_lines in lines:
+        for line in rank_lines:
+            by_name.setdefault(line["scenario"], []).append(line)
+    return {k: sorted(v, key=lambda r: r["rank"]) for k, v in by_name.items()}
+
+
+def _rel_diffs(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _dp_summary(rs: list, single: dict) -> dict:
+    """The workers' run ``rs`` (one line a rank) against one process's.
+    A worker's loss_fn sees its block's loss; the global batch's is their
+    mean (equal blocks)."""
+    losses = [statistics.fmean(step)
+              for step in zip(*(r["losses"] for r in rs))]
+    return {
+        "mesh_history": [r["mesh_history"] for r in rs],
+        "losses": losses,
+        "rank_losses": [r["losses"] for r in rs],
+        "one_process_losses": single["losses"],
+        "max_rel_loss_diff_vs_one_process": _rel_diffs(
+            losses, single["losses"]),
+        "replicas_equal_after_each_step": len(rs) > 1 and all(
+            r["fingerprints"] == rs[0]["fingerprints"]
+            and r["final_digest"] == rs[0]["final_digest"] for r in rs),
+        "steps_fingerprinted": [len(r["fingerprints"]) for r in rs],
+        "launches": [r["launches"] for r in rs],
+        "step_ms": [r["step_ms"] for r in rs],
+        "one_process_step_ms": single["step_ms"],
+        "wall_s": [r["wall_s"] for r in rs]}
+
+
+def _dp_problems(runs: dict) -> list:
+    """The gates of the two workers' runs (:func:`_dp_summary` by name):
+    {"dp": 2} meshes, equal replicas, losses within their bounds, B1 once
+    a step and flash 2 / 1 / 1 a layer a step on every rank, finite
+    losses; and the planted fault must break replica identity."""
+    per_gpt_step = {"fwd": 2 * DP_GPT_LAYERS, "dq": DP_GPT_LAYERS,
+                    "dkv": DP_GPT_LAYERS}
+    problems = []
+    for name, tol, steps, launches in (
+            ("resnet50", DP_RESNET_RTOL, DP_RESNET_STEPS,
+             {"fused_sgd": DP_RESNET_STEPS}),
+            ("gpt", DP_GPT_RTOL, DP_GPT_STEPS,
+             {"flash_" + k: v * DP_GPT_STEPS
+              for k, v in per_gpt_step.items()})):
+        run = runs[name]
+        if run["mesh_history"] != [[{"dp": 2}]] * 2:
+            problems.append("%s workers had meshes %r"
+                            % (name, run["mesh_history"]))
+        if not run["replicas_equal_after_each_step"] \
+                or run["steps_fingerprinted"] != [steps] * 2:
+            problems.append("%s replicas differ after a step" % name)
+        if not run["max_rel_loss_diff_vs_one_process"] <= tol:
+            problems.append("%s losses part from one process's by %g"
+                            % (name, run["max_rel_loss_diff_vs_one_process"]))
+        for r in run["launches"]:
+            if any(r[k] != v for k, v in launches.items()):
+                problems.append("%s launches %r, expected %r"
+                                % (name, r, launches))
+        if len(run["losses"]) != steps \
+                or not all(np.isfinite(x) for x in run["losses"]):
+            problems.append("%s: a loss is missing or not finite" % name)
+    if runs["resnet50_skip_grad_allreduce"][
+            "replicas_equal_after_each_step"]:
+        problems.append("the replica gate missed rank 1 keeping its local "
+                        "gradients")
+    return problems
+
+
+def phase_train_dp(smi: str, train_losses: list) -> dict:
+    """Data-parallel training through the port's DP path (a dp mesh, the
+    gradient and metric means, sync BatchNorm, per-rank batch blocks):
+
+    (a) a process group of one over NCCL and ``mesh_axes={"dp": 1}``:
+        ResNet-50 as phase_train's ``fused_sgd`` run (224x224, batch 128,
+        30 steps), whose losses must equal that run's bit for bit (the
+        world-1 means scale by 1.0, and NCCL's one-rank kernel is a copy
+        times 1); a profile counts the NCCL kernels a step against
+        :func:`_dp_collectives_per_step`; B1 launches 30 times;
+    (b) two workers on this card (gloo; NCCL refuses two ranks on one
+        device: its words are printed), started as the operator starts
+        them, ResNet-50 at global batch 128 for DP_RESNET_STEPS steps:
+        after every step both ranks' parameters (BatchNorm's running
+        stats included) must be equal bit for bit (by a fingerprint of
+        their bits, and by sha256 of the whole final state), the
+        losses (the mean of the ranks' block losses) within
+        DP_RESNET_RTOL of one process's run of the same steps, B1
+        launched once a step on each rank; the planted fault (rank 1
+        keeps its local gradients) must break the replica gate;
+    (c) GPT-2 small cut to DP_GPT_LAYERS layers (full width, 16 x 1024)
+        the same way for DP_GPT_STEPS steps: replicas equal, losses
+        within DP_GPT_RTOL of one process, the flash launches of a rank
+        a step (fwd twice a layer under remat, dq and dkv once).
+
+    The two workers share one card: their step times are a correctness
+    run's, not a multi-GPU rate."""
+    import torch.distributed as dist
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        dist.init_process_group(
+            "nccl", init_method="tcp://localhost:%d" % dp_check.free_port(),
+            world_size=1, rank=0)
+        try:
+            optim.multi_tensor_sgd.launches = 0
+            rec_a, out_a, wall_a = _train_run(
+                _sgd_opts("fused_sgd"), 30, "", mesh_axes={"dp": 1})
+            launches_a = optim.multi_tensor_sgd.launches
+            nccl = _nccl_profile(make_mesh({"dp": 1}))
+        finally:
+            dist.destroy_process_group()
+        one = {"resnet50": dp_check.card_run("resnet50", DP_RESNET_STEPS),
+               "gpt": dp_check.card_run("gpt2_2layers", DP_GPT_STEPS)}
+        workers = _dp_workers(os.path.join(tmp, "workers"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        cudnn.deterministic, cudnn.benchmark = saved
+    la = rec_a.host_losses()
+    marks = rec_a.starts[10:30] + [rec_a.end]
+    step_ms_a = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+    runs = {name: _dp_summary(workers[name], one[ref]) for name, ref in (
+        ("resnet50", "resnet50"),
+        ("resnet50_skip_grad_allreduce", "resnet50"), ("gpt", "gpt"))}
+    resnet_dp, fault, gpt_dp = (runs["resnet50"],
+                                runs["resnet50_skip_grad_allreduce"],
+                                runs["gpt"])
+    out = {
+        "phase": "train_dp", "card": smi,
+        "note": "(b) and (c) run two worker processes on this one card "
+                "over gloo: a correctness check, not a multi-GPU rate",
+        "nccl_world_1": {
+            "losses": la, "fused_sgd_run_losses": train_losses,
+            "max_abs_loss_diff_vs_fused_sgd_run": max(
+                abs(x - y) for x, y in zip(la, train_losses)),
+            "mesh_history": out_a["mesh_history"],
+            "fused_sgd_launches": launches_a,
+            "step_ms_median_steps_11_30": statistics.median(step_ms_a),
+            "wall_s": wall_a, "profile": nccl},
+        "two_workers_resnet50": resnet_dp,
+        "planted_skip_grad_allreduce": fault,
+        "two_workers_gpt2_2layers": gpt_dp,
+        "nccl_two_ranks_one_card": workers.get("nccl_pair"),
+        "tolerance": {"resnet_rel": DP_RESNET_RTOL, "gpt_rel": DP_GPT_RTOL},
+    }
+    emit(out)
+    print("train_dp: median step ms (%s): NCCL world 1 %.2f (steps "
+          "11-30); one process / two gloo workers sharing this card "
+          "(steps 2 on), ResNet-50 %.2f / %s, GPT-2 2 layers %.2f / %s"
+          % (smi, statistics.median(step_ms_a),
+             statistics.median(one["resnet50"]["step_ms"][1:]),
+             [statistics.median(s[1:]) for s in resnet_dp["step_ms"]],
+             statistics.median(one["gpt"]["step_ms"][1:]),
+             [statistics.median(s[1:]) for s in gpt_dp["step_ms"]]),
+          flush=True)
+    problems = []
+    if la != train_losses:
+        problems.append("NCCL world-1 losses differ from the fused_sgd run "
+                        "by up to %g" % out["nccl_world_1"][
+                            "max_abs_loss_diff_vs_fused_sgd_run"])
+    if out_a["mesh_history"] != [{"dp": 1}]:
+        problems.append("world-1 run had mesh %r" % out_a["mesh_history"])
+    if launches_a != 30:
+        problems.append("B1 launched %d times at world 1, not 30"
+                        % launches_a)
+    if nccl["nccl_kernels_per_step"] != nccl[
+            "expected_collectives_per_step"]["total"]:
+        problems.append("%.2f NCCL kernels a step, expected %d"
+                        % (nccl["nccl_kernels_per_step"],
+                           nccl["expected_collectives_per_step"]["total"]))
+    problems += _dp_problems(runs)
+    if [r.get("ok") for r in workers.get("nccl_pair", [])] != [False,
+                                                                False]:
+        problems.append("NCCL did not refuse two ranks on one card: %r"
+                        % workers.get("nccl_pair"))
+    if problems:
+        fail("train_dp: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2317,6 +2610,8 @@ def main() -> int:
     train_gpt_out = phase_train_gpt(env["nvidia_smi"])
     moe_out = phase_train_gpt_moe(env["nvidia_smi"])
     bert_out = phase_train_bert(env["nvidia_smi"])
+    dp_out = phase_train_dp(env["nvidia_smi"],
+                            train["losses"]["fused_sgd"])
     paged_shapes = kernels["kernels"][0]["shapes"]
     full = next(s for s in paged_shapes if s["case"] == "full_width"
                 and s["q_dtype"] == s["kv_dtype"] == str(torch.float32))
@@ -2352,7 +2647,10 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
     emit({"phase": "summary", "seconds": time.perf_counter() - t0,
-          "bert_moe_launches": bert_out["bert_base_moe"]["launches"]})
+          "bert_moe_launches": bert_out["bert_base_moe"]["launches"],
+          "dp_launches_per_rank": {
+              "fused_sgd": dp_out["two_workers_resnet50"]["launches"],
+              "flash": dp_out["two_workers_gpt2_2layers"]["launches"]}})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,

@@ -11,10 +11,13 @@ Ported so far:
 * the serving path (:mod:`.serving`): continuous batching over GPT
   (:mod:`.models.gpt`) with a paged KV cache and the paged
   decode-attention kernel (:mod:`.ops.attention`);
-* single-device training (:mod:`.runner`): ResNet (:mod:`.models.resnet`)
-  through the train step (:mod:`.parallel.train`), the input pipeline
-  (:mod:`.data`) and v2 checkpoints (:mod:`.utils.checkpoint`), updated by
-  SGD or by ``fused_sgd``'s multi-tensor kernel (:mod:`.ops.optim`).
+* training (:mod:`.runner`): ResNet (:mod:`.models.resnet`), GPT and
+  BERT through the train step (:mod:`.parallel.train`), the input
+  pipeline (:mod:`.data`) and checkpoints (:mod:`.utils.checkpoint`),
+  updated by SGD, ``fused_sgd``'s multi-tensor kernel or AdamW
+  (:mod:`.ops.optim`); on one device, or data-parallel over the worker
+  processes that :mod:`.launch` joins into a ``dp`` mesh
+  (:mod:`.parallel.mesh`, :mod:`.parallel.collectives`).
 
 Entry points run on CUDA unless given ``device="cpu"``
 (:func:`.device.resolve_device`).

@@ -1,5 +1,5 @@
 """Input pipeline: a background producer feeding the training loop. The
-port of ``paddle_operator_tpu/data.py`` for one process.
+port of ``paddle_operator_tpu/data.py``.
 
 * :class:`ShardedLoader` runs a producer thread that pulls batches from a
   source and stages them on the device into a bounded queue, so batch
@@ -15,7 +15,9 @@ port of ``paddle_operator_tpu/data.py`` for one process.
   ...]`` windows of the ``steps_per_call`` path; step ``s`` gets a
   generator seeded from ``(seed, s)`` (:func:`step_generator`, the
   counterpart of ``fold_in(rng, s)``), so a resumed run rebuilds the same
-  batches.
+  batches. Under data parallelism each step's batch is cut to the rank's
+  block (:func:`process_shard`) before it is stacked or placed, so only
+  that block reaches the rank's card.
 * :class:`DeferredMetrics` starts the device-to-host copy of a metrics
   tree at one log boundary and reads it at the next, so logging never
   stalls the device queue.
@@ -51,14 +53,46 @@ def step_generator(seed: int, step: int,
     return torch.Generator(device=dev).manual_seed(int(state[0]) >> 1)
 
 
-def stack_window(batches: list) -> Any:
+def process_shard(batch: Any, process_index: int, process_count: int,
+                  axis: int = 0) -> Any:
+    """Slice the global batch to this process's contiguous block of
+    ``axis`` (data parallelism: process i takes rows ``[i*b/P,
+    (i+1)*b/P)``). Leaves with no such axis (scalars) are kept whole; a
+    torch block is copied out, so the global batch can be freed."""
+    if process_count == 1:
+        return batch
+
+    def slice_leaf(leaf):
+        if getattr(leaf, "ndim", 0) <= axis:
+            return leaf
+        n = leaf.shape[axis]
+        if n % process_count:
+            raise ValueError(
+                "global batch dim %d does not divide across %d processes"
+                % (n, process_count)
+            )
+        per = n // process_count
+        if isinstance(leaf, torch.Tensor):
+            return leaf.narrow(axis, process_index * per, per).clone(
+                memory_format=torch.contiguous_format)
+        index = (slice(None),) * axis + (
+            slice(process_index * per, (process_index + 1) * per),)
+        return np.asarray(leaf)[index]
+
+    return bridge.tree_map(slice_leaf, batch)
+
+
+def stack_window(batches: list, force_host: bool = False) -> Any:
     """Stack K per-step batches into one ``[K, ...]`` window: torch leaves
     with ``torch.stack`` (on their device), numpy leaves with
-    ``np.stack``."""
+    ``np.stack``. ``force_host`` stacks every leaf on the host, as numpy,
+    whatever its device (the reference's multi-host windows)."""
     def stack(*xs):
-        if all(isinstance(x, torch.Tensor) for x in xs):
+        if not force_host and all(isinstance(x, torch.Tensor) for x in xs):
             return torch.stack(xs)
-        return np.stack([np.asarray(x) for x in xs])
+        return np.stack([x.detach().cpu().numpy()
+                         if isinstance(x, torch.Tensor) else np.asarray(x)
+                         for x in xs])
 
     return bridge.tree_map(stack, *batches)
 
@@ -66,25 +100,35 @@ def stack_window(batches: list) -> Any:
 def job_window_source(make_batch: Callable[[torch.Generator, int], Any],
                       seed: int, start_step: int, total_steps: int,
                       steps_per_call: int = 1,
-                      device: DeviceLike = None) -> Iterator[Any]:
+                      device: DeviceLike = None,
+                      force_host_windows: bool = False,
+                      shard: Optional[Callable[[Any], Any]] = None
+                      ) -> Iterator[Any]:
     """Adapt a ``TrainJob.make_batch(generator, step)`` into a loader
     source, drawing on ``device`` (``None`` means CUDA). Yields, in the
     order ``run_training`` consumes them, full ``[K, ...]`` windows while
-    at least K steps remain, then single batches for the tail (always
-    singles when K == 1). The device is resolved here, at the call."""
+    at least K steps remain (stacked on the host if
+    ``force_host_windows``), then single batches for the tail (always
+    singles when K == 1). ``shard`` (e.g. a :func:`process_shard`
+    partial) cuts each step's batch to this rank's block before it is
+    stacked. The device is resolved here, at the call."""
     dev = resolve_device(device, "job_window_source")
     K = max(1, steps_per_call)
+    cut = shard or (lambda b: b)
+
+    def one(s: int) -> Any:
+        return cut(make_batch(step_generator(seed, s, dev), s))
 
     def windows() -> Iterator[Any]:
         step = start_step
         while step < total_steps:
             span = min(K, total_steps - step)
             if span == K and K > 1:
-                yield stack_window([make_batch(step_generator(seed, s, dev), s)
-                                    for s in range(step, step + K)])
+                yield stack_window([one(s) for s in range(step, step + K)],
+                                   force_host=force_host_windows)
             else:
                 for s in range(step, step + span):
-                    yield make_batch(step_generator(seed, s, dev), s)
+                    yield one(s)
             step += span
 
     return windows()

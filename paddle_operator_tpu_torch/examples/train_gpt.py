@@ -1,4 +1,5 @@
-"""GPT causal-LM training entry of the port, on one CUDA device:
+"""GPT causal-LM training entry of the port, on one CUDA device or one a
+worker:
 
     python -m paddle_operator_tpu_torch.examples.train_gpt
 
@@ -17,10 +18,13 @@ experts (``moe_every=2``); ``TPUJOB_MOE_FUSED=1``, read when the loss
 runs, takes the MoE dispatch/combine CUDA kernels in place of the dense
 einsum formulation.
 
-Not ported yet: ``TPUJOB_SP > 1`` (ring attention over a sequence mesh)
-raises. The train step is single-device, so the reference's sharding
-rules (``gpt_rules``, and ``moe_rules``' expert axis) and mesh axes are
-not carried.
+Under ``python -m paddle_operator_tpu_torch.launch`` with several
+workers, ``run_training`` splits the global batch (``TPUJOB_BATCH``)
+over a ``dp`` mesh. Not ported yet: ``TPUJOB_SP > 1`` (ring attention
+over a sequence mesh) raises, and so does MoE under a dp mesh of more
+than one worker (ROADMAP A9). The reference's sharding rules
+(``gpt_rules``, ``moe_rules``) shard over tp and ep only, which a dp mesh
+lacks, so they are not carried.
 """
 
 import logging
@@ -45,7 +49,7 @@ def make_job(env: Optional[Mapping[str, str]] = None,
     if _int(env, "TPUJOB_SP", 1) > 1:
         raise NotImplementedError(
             "TPUJOB_SP>1 (sequence-parallel ring attention) is not ported "
-            "yet; the port's train step is single-device")
+            "yet; the port's mesh is dp only")
     batch = _int(env, "TPUJOB_BATCH", 16)
     seq = _int(env, "TPUJOB_SEQ", 1024)
     steps = _int(env, "TPUJOB_STEPS", 100)

@@ -1,13 +1,20 @@
-"""ResNet-50 training entry of the port, on one CUDA device:
+"""ResNet-50 training entry of the port, on one CUDA device or one a
+worker:
 
     python -m paddle_operator_tpu_torch.examples.train_resnet
+    python -m paddle_operator_tpu_torch.launch \
+        paddle_operator_tpu_torch/examples/train_resnet.py   # in a pod
 
 The counterpart of ``examples/train_resnet.py``: the same env vars
-(``TPUJOB_BATCH``, ``TPUJOB_STEPS``, ``TPUJOB_STEPS_PER_CALL``,
-``TPUJOB_CHECKPOINT_DIR``), plain ``sgd`` with momentum 0.9, weight decay
-1e-4 and ``cosine_schedule(0.4, STEPS, STEPS // 20)``, synthetic batches,
-bf16 compute on fp32 master parameters. ``optim.fused_sgd`` is the
-drop-in that runs the update as one CUDA kernel launch per step.
+(``TPUJOB_BATCH``, the global batch over every worker, ``TPUJOB_STEPS``,
+``TPUJOB_STEPS_PER_CALL``, ``TPUJOB_CHECKPOINT_DIR``), plain ``sgd`` with
+momentum 0.9, weight decay 1e-4 and ``cosine_schedule(0.4, STEPS, STEPS
+// 20)``, synthetic batches, bf16 compute on fp32 master parameters.
+``optim.fused_sgd`` is the drop-in that runs the update as one CUDA
+kernel launch per step. Under ``launch`` with several workers
+``run_training`` splits the batch over a ``dp`` mesh; the reference's
+``resnet_rules`` shard only over ``fsdp``, which a dp mesh lacks, so
+they are not carried.
 """
 
 import logging

@@ -40,6 +40,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
 from . import _kernels, nn
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -71,6 +72,13 @@ def _route(params: Dict, x: torch.Tensor, capacity_factor: float
     integers. Positions are ``cumsum(one_hot) * one_hot - 1`` in int64,
     exact and deterministic, so a recompute under remat routes every token
     as the forward did."""
+    ranks = collectives.size(collectives.batch_group())
+    if ranks > 1:
+        # the reference sets capacity from the GLOBAL token count and
+        # shards experts over ep; a rank's own count would route otherwise
+        raise NotImplementedError(
+            "MoE under a dp mesh of %d ranks: expert capacity and expert "
+            "sharding over the mesh wait for ROADMAP A9" % ranks)
     b, s, _ = x.shape
     e = params["wi"].shape[0]
     tokens = b * s

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import collectives
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -161,15 +163,27 @@ def batchnorm(params: Params, x: torch.Tensor, train: bool,
     new running stats (momentum on the OLD value) are returned, detached,
     never written here. Returns ``(y, new_stats)``; ``new_stats`` is None
     in eval mode. ``nn.BatchNorm2d`` differs (unbiased running variance,
-    buffers updated inside forward), so the formula is written out."""
+    buffers updated inside forward), so the formula is written out.
+
+    Sync BatchNorm, as the reference's: inside a dp train step
+    (:func:`..parallel.collectives.sync_batch`) the per-channel means of
+    ``d`` and ``d**2`` are averaged over the ranks in one collective,
+    differentiably, so the statistics, the running stats and the
+    gradients are those of the global batch (the ranks' shards are of
+    one size). Without a group the formula and its rounding are the
+    single-device ones."""
     xf = x.float()
     if train:
         axes = tuple(range(x.ndim - 1))
         c = params["mean"].float().detach()
         d = xf - c
         dmean = d.mean(dim=axes)
-        var = torch.clamp(torch.square(d).mean(dim=axes)
-                          - torch.square(dmean), min=0.0)
+        sq_mean = torch.square(d).mean(dim=axes)
+        group = collectives.batch_group()
+        if group is not None:
+            dmean, sq_mean = collectives.mean_with_grad(
+                torch.stack([dmean, sq_mean]), group).unbind(0)
+        var = torch.clamp(sq_mean - torch.square(dmean), min=0.0)
         mean = dmean + c
         with torch.no_grad():
             new_stats = {

@@ -1,4 +1,5 @@
-"""The single-device train step of the port: :mod:`.train`."""
+"""The train step (:mod:`.train`), on one device or data-parallel over
+a ``dp`` mesh of processes (:mod:`.mesh`, :mod:`.collectives`)."""
 
 from .train import build_train_step  # noqa: F401
 

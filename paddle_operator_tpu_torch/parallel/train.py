@@ -1,5 +1,6 @@
-"""The train step: the single-device port of
-``paddle_operator_tpu/parallel/train.py``'s ``build_train_step``.
+"""The train step: the port of ``paddle_operator_tpu/parallel/train.py``'s
+``build_train_step``, on one device or data-parallel over a ``dp`` mesh of
+processes (:mod:`.mesh`).
 
 ``step_fn(state, batch) -> (state, metrics)`` computes the loss and its
 grads with autograd, optionally clips them, applies the optimizer and then
@@ -8,8 +9,17 @@ update, as the reference does). The state is updated in place, the
 counterpart of the JAX step's ``donate_argnums=0``: ``state`` holds one
 copy of params and optimizer state for the run.
 
-Device meshes and DTensor sharding are not ported yet: ``mesh`` must be
-None.
+Under a dp mesh each rank runs this step on its block of the global
+batch, and the collectives GSPMD inserts into the reference's program
+are written out (:mod:`.collectives`): BatchNorm averages its batch
+statistics over the ranks while the loss runs (sync BatchNorm); the
+gradients are averaged once an optimizer step, after the last
+microbatch and before clipping, so the clip sees the global gradient's
+norm; the loss and metrics are averaged so every rank reports the
+global batch's. The state is broadcast from rank 0 at build, and stays
+identical on every rank from then on. Parameters and optimizer state are
+replicated: sharding rules over an axis of the mesh, and ``seq_axis``,
+raise (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -19,7 +29,10 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from .. import bridge
+from ..data import process_shard
 from ..ops.optim import Optimizer, clip_by_global_norm
+from . import collectives
+from .mesh import Mesh
 
 
 def _grads_of(loss_fn: Callable, params: Any, batch: Any):
@@ -51,12 +64,46 @@ def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
     return a if b is None else a + b
 
 
+def batch_axis_of(accum_steps: int = 1, steps_per_call: int = 1) -> int:
+    """The axis of a batch leaf that the dp mesh splits, the meaning of
+    the reference's ``batch_shardings``: 0 for a plain batch, 1 under a
+    ``[K]`` window or an ``[accum]`` microbatch stack, 2 under both."""
+    return int(accum_steps > 1) + int(steps_per_call > 1)
+
+
+def _check_mesh(mesh: Mesh, rules: Any, batch_axis: str,
+                seq_axis: Optional[str]) -> None:
+    """Refuse what the dp-only port cannot shard: a sequence axis, a
+    batch axis the mesh lacks, and rules that name an axis of the mesh.
+    Rules whose axes are all missing from the mesh mean "replicated", as
+    the reference's rule tables do there."""
+    if seq_axis is not None:
+        raise NotImplementedError(
+            "seq_axis=%r: sequence parallelism is not ported (ROADMAP A9)"
+            % seq_axis)
+    if batch_axis not in mesh.shape:
+        raise ValueError("batch axis %r is not an axis of the mesh %s"
+                         % (batch_axis, mesh.shape))
+    for pattern, spec in rules or ():
+        for axis in spec:
+            names = axis if isinstance(axis, tuple) else (axis,)
+            named = [n for n in names if n is not None and n in mesh.shape]
+            if named:
+                raise NotImplementedError(
+                    "sharding rule %r shards over mesh axis %r; the port "
+                    "replicates parameters (ROADMAP A9)" % (pattern,
+                                                           named[0]))
+
+
 def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
-                     sample_batch: Any, mesh: Any = None,
+                     sample_batch: Any, mesh: Optional[Mesh] = None,
+                     rules: Any = None, batch_axis: str = "dp",
+                     seq_axis: Optional[str] = None,
                      merge_stats: Optional[Callable] = None,
                      grad_clip: Optional[float] = None,
                      accum_steps: int = 1, steps_per_call: int = 1,
-                     init_state: bool = True):
+                     init_state: bool = True,
+                     host_local_batches: bool = False):
     """Returns ``(step_fn, state)``.
 
     * ``loss_fn(params, batch) -> (loss, aux)``; if ``merge_stats`` is
@@ -70,11 +117,22 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
       extra leading ``[K]`` axis are sliced one step at a time; leaves of
       the sample's shape are reused every step. Metrics come back stacked
       ``[K]``.
+    * ``mesh``: a dp :class:`.mesh.Mesh`. ``host_local_batches=False``:
+      ``step_fn`` takes the GLOBAL batch, the same on every rank, and
+      each rank trains on its contiguous block of the batch axis
+      (:func:`batch_axis_of`); ``True``: ``step_fn`` takes this rank's
+      block as it is. ``rules`` naming only axes the mesh lacks are
+      accepted (replicated); other rules and ``seq_axis`` raise.
     """
+    group = None
     if mesh is not None:
-        raise NotImplementedError(
-            "build_train_step: device meshes are not ported yet; the port's "
-            "train step is single-device (mesh=None)")
+        _check_mesh(mesh, rules, batch_axis, seq_axis)
+        group = mesh.group
+    # the per-step batch's axis that the mesh splits (the [K] axis is
+    # sliced off before step() sees the batch)
+    split_axis = batch_axis_of(accum_steps)
+    take_block = mesh is not None and not host_local_batches \
+        and mesh.size > 1
 
     def grads_of(p: Any, batch: Any):
         if accum_steps == 1:
@@ -103,18 +161,26 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
         return (lsum / accum_steps, aux), grads
 
     def step(state: Dict, batch: Any):
-        (loss, aux), grads = grads_of(state["params"], batch)
-        metrics = {"loss": loss}
+        if take_block:
+            batch = process_shard(batch, mesh.rank, mesh.size,
+                                  axis=split_axis)
+        with collectives.sync_batch(group):
+            (loss, aux), grads = grads_of(state["params"], batch)
+        grads = collectives.mean_grads(grads, group)
+        gnorm = None
         if grad_clip:
             grads, gnorm = clip_by_global_norm(grads, grad_clip)
-            metrics["grad_norm"] = gnorm
         optimizer.update(grads, state["opt"], state["params"])
         if merge_stats is not None and isinstance(aux, dict) \
                 and "stats" in aux:
             merge_stats(state["params"], aux["stats"])
             aux = {k: v for k, v in aux.items() if k != "stats"}
+        metrics = {"loss": loss}
         if isinstance(aux, dict):
             metrics.update(_detach(aux))
+        metrics = collectives.mean_metrics(metrics, group)
+        if gnorm is not None:
+            metrics["grad_norm"] = gnorm
         return state, metrics
 
     sample_ndims = [getattr(x, "ndim", 0)
@@ -138,4 +204,5 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
     if not init_state:
         return step_fn, None
     own = bridge.tree_map(lambda p: p.detach().clone(), params)
-    return step_fn, {"params": own, "opt": optimizer.init(own)}
+    state = {"params": own, "opt": optimizer.init(own)}
+    return step_fn, collectives.broadcast_(state, group)

@@ -1,14 +1,21 @@
 """The training runner of the port: ``TrainJob`` + ``run_training``, the
-loop of ``paddle_operator_tpu/runner.py`` that ``examples/train_resnet.py``
-needs, on one device.
+loop of ``paddle_operator_tpu/runner.py``, on one device or data-parallel
+over the processes of a ``torch.distributed`` world (one card each).
 
-It builds the train step (:mod:`.parallel.train`), resumes from the newest
-valid checkpoint (:func:`.utils.checkpoint.restore_latest`), feeds
-prestaged batches or ``[K, ...]`` windows from a background producer
-(:class:`.data.ShardedLoader`), logs deferred metrics every ``log_every``
-steps, saves every ``checkpoint_every`` steps (on a background thread),
-and on a drain request (:class:`DrainMonitor`) cuts a
-checkpoint at the next step boundary and returns clean.
+It joins the world the operator's env describes
+(:func:`.launch.initialize_distributed`), builds a ``dp`` mesh when
+``mesh_axes`` is set or the world has more than one process
+(:mod:`.parallel.mesh`), builds the train step (:mod:`.parallel.train`),
+resumes from the newest valid checkpoint (:func:`.utils.checkpoint.
+restore_latest`, agreed between the ranks), feeds prestaged batches or
+``[K, ...]`` windows from a background producer (:class:`.data.
+ShardedLoader`; each rank draws the global batch and keeps its block),
+logs deferred metrics every ``log_every`` steps, saves every
+``checkpoint_every`` steps (v2 on a background thread from worker 0 in a
+world of one; the sharded format from every rank, synchronously, in a
+larger one), and on a drain request (:class:`DrainMonitor`) seen by any
+rank cuts a checkpoint at the next step boundary on every rank and
+returns clean.
 
 Not ported yet: elastic restart cycles, the live-migration handshake,
 incident tracing, the worker metrics server, step profiling, straggler
@@ -17,6 +24,7 @@ detection and the hardware-efficiency plane.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import threading
@@ -27,12 +35,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .data import DeferredMetrics, ShardedLoader, job_window_source, \
-    step_generator
+    process_shard, step_generator
 from .device import DeviceLike, resolve_device
-from .launch import LaunchConfig, detect_env, initialize_distributed
+from .launch import LaunchConfig, detect_env, initialize_distributed, \
+    shutdown_distributed
 from .ops.optim import Optimizer
-from .parallel import build_train_step
-from .utils.checkpoint import AsyncCheckpointer, load_into, restore_latest
+from .parallel import build_train_step, collectives
+from .parallel.mesh import Mesh, make_mesh, world_size
+from .parallel.train import batch_axis_of
+from .utils.checkpoint import AsyncCheckpointer, load_into, \
+    restore_latest, save_checkpoint_sharded
 from .utils.trace import StageTimes
 
 log = logging.getLogger("tpujob.runner")
@@ -112,34 +124,72 @@ class TrainJob:
     seed: int = 0
     # where to train: None means CUDA (and raises without a card)
     device: DeviceLike = None
+    # {axis: size} of the mesh, dp only (e.g. {"dp": -1}); None: dp over
+    # every process of the world, or no mesh in a world of one
+    mesh_axes: Optional[Dict[str, int]] = None
+    # input contract under dp: False = make_batch returns the GLOBAL
+    # batch, the same on every rank, and each rank keeps its block; True
+    # = make_batch returns only this rank's block
+    host_local_batches: bool = False
 
 
 def run_training(job: TrainJob,
                  cfg: Optional[LaunchConfig] = None) -> Dict[str, Any]:
     """Train to ``job.total_steps`` (from the newest checkpoint, if any).
 
-    Returns ``{"state", "steps", "cycles", "loss", "host_stages"}``, plus
-    ``"resume_steps"`` after a restore and ``"drained"``/``"drain_step"``
-    after a drain."""
+    Returns ``{"state", "steps", "cycles", "loss", "host_stages",
+    "mesh_history"}``, plus ``"resume_steps"`` after a restore and
+    ``"drained"``/``"drain_step"`` after a drain. Joins the world of
+    ``cfg`` (default: the env) if it is not up yet, and leaves a group it
+    made at the end."""
     cfg = cfg or detect_env()
     if cfg.is_elastic:
         raise NotImplementedError(
             "elastic training cycles are not ported yet")
-    initialize_distributed(cfg)
+    made = initialize_distributed(cfg, device=job.device)
+    try:
+        return _run(job, cfg)
+    finally:
+        shutdown_distributed(made)
+
+
+def _run(job: TrainJob, cfg: LaunchConfig) -> Dict[str, Any]:
     dev = resolve_device(job.device, "run_training")
     result: Dict[str, Any] = {"cycles": 1}
+    mesh = make_mesh(job.mesh_axes) if (
+        job.mesh_axes or world_size() > 1) else None
+    result["mesh_history"] = [dict(mesh.shape) if mesh is not None
+                              else None]
+    multi = mesh is not None and mesh.size > 1
     writer = AsyncCheckpointer()
     drain = job.drain_monitor or DrainMonitor(
         job.drain_file or os.environ.get("TPUJOB_DRAIN_FILE", ""),
         job.drain_signals)
 
     def save(step: int, state: Any) -> None:
-        if cfg.worker_id == 0:
+        """Several ranks: every rank writes the sharded format, in step,
+        synchronously (it meets barriers anyway); one: worker 0 writes v2
+        on the background thread."""
+        if multi:
+            save_checkpoint_sharded(job.checkpoint_dir, step, state,
+                                    meta={"epoch": 0}, group=mesh.control)
+        elif cfg.worker_id == 0:
             writer.save(job.checkpoint_dir, step, state, meta={"epoch": 0})
+
+    def drain_agreed() -> bool:
+        """The boundary's drain decision, the same on every rank: a drain
+        is per pod (one SIGTERM, one drain file), so each rank offers its
+        own and the MAX over the ranks decides. Every rank calls this at
+        every boundary, so the collective is aligned; a drain seen by one
+        rank alone would leave its peers waiting in the next step's
+        collectives."""
+        local = int(drain.requested())
+        return bool(collectives.max_int(local, mesh.control)) if multi \
+            else bool(local)
 
     try:
         drain.install()
-        _train(job, dev, result, save, drain, writer)
+        _train(job, dev, mesh, result, save, drain_agreed, writer)
         writer.wait()   # a pending final write lands before we report
     finally:
         try:
@@ -150,14 +200,18 @@ def run_training(job: TrainJob,
     return result
 
 
-def _train(job: TrainJob, dev: torch.device, result: Dict[str, Any],
-           save: Callable, drain: DrainMonitor,
+def _train(job: TrainJob, dev: torch.device, mesh: Optional[Mesh],
+           result: Dict[str, Any], save: Callable,
+           drain_agreed: Callable[[], bool],
            writer: AsyncCheckpointer) -> None:
     params = job.init_params(torch.Generator(device=dev).manual_seed(job.seed))
     K = max(1, job.steps_per_call)
     sample = job.make_batch(step_generator(job.seed, 0, dev), 0)
+    multi = mesh is not None and mesh.size > 1
+    # the loader hands each rank its block, so the step takes it as is
     build = dict(merge_stats=job.merge_stats, grad_clip=job.grad_clip,
-                 accum_steps=job.accum_steps)
+                 accum_steps=job.accum_steps, mesh=mesh,
+                 host_local_batches=True)
     step_fn, state = build_train_step(job.loss_fn, job.optimizer, params,
                                       sample, steps_per_call=K, **build)
     del params
@@ -166,7 +220,9 @@ def _train(job: TrainJob, dev: torch.device, result: Dict[str, Any],
     start_step = 0
     if job.checkpoint_dir:
         try:
-            restored, manifest = restore_latest(job.checkpoint_dir)
+            restored, manifest = restore_latest(
+                job.checkpoint_dir,
+                group=mesh.control if mesh is not None else None)
         except FileNotFoundError:
             manifest = None   # fresh run (or nothing valid survived)
         if manifest is not None:
@@ -188,9 +244,16 @@ def _train(job: TrainJob, dev: torch.device, result: Dict[str, Any],
         log.info("step %d loss=%.4f steps/s=%.2f", pstep,
                  float(host["loss"]), rate)
 
+    shard = None
+    if multi and not job.host_local_batches:
+        shard = functools.partial(process_shard,
+                                  process_index=mesh.rank,
+                                  process_count=mesh.size,
+                                  axis=batch_axis_of(job.accum_steps))
     loader = ShardedLoader(
         job_window_source(job.make_batch, job.seed, start_step,
-                          job.total_steps, steps_per_call=K, device=dev),
+                          job.total_steps, steps_per_call=K, device=dev,
+                          shard=shard),
         device=dev, timings=times)
     t_dispatched = None
 
@@ -232,7 +295,7 @@ def _train(job: TrainJob, dev: torch.device, result: Dict[str, Any],
                 last_saved = step
             result["state"] = state
             result["steps"] = step
-            if drain.requested():
+            if drain_agreed():
                 log.info("drain requested; cutting final checkpoint at step "
                          "%d", step)
                 log_resolved(deferred.resolve())

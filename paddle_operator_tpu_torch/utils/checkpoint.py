@@ -11,7 +11,16 @@ unparseable or uncommitted manifest, which readers skip.
 :func:`restore_latest` walks back past torn or checksum-failing steps,
 quarantining each with a ``.corrupt`` rename. Tensors are stored in the
 reference layout as numpy arrays, so the two packages read each other's
-checkpoints. The sharded multi-host format is not ported.
+checkpoints.
+
+Sharded format (:func:`save_checkpoint_sharded`, the multi-process one):
+``step_N/<path>.sNN.npy`` per shard, ``shards.json`` indexing each
+shard's slices of the global array with its CRC32, and the manifest
+(``"format": "sharded"``). The port's states are replicated over ``dp``,
+so each leaf is one shard, written by rank 0 (replica 0); every rank
+writes its part of the index, and rank 0 merges them and publishes the
+step, between the reference's four barriers. Readers assemble any tiling
+the JAX package wrote (:func:`restore_checkpoint`).
 """
 
 from __future__ import annotations
@@ -25,12 +34,14 @@ import threading
 import time
 import zipfile
 import zlib
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import bridge
+from ..parallel import collectives
 
 log = logging.getLogger("tpujob.checkpoint")
 
@@ -270,7 +281,7 @@ def gc_checkpoints(ckpt_dir: str, keep_last_n: int = 3,
             removed.append(path)
         now = time.time()
         for name in names:
-            if name.startswith(".tmp_"):
+            if name.startswith(".tmp_") or name.startswith(".partial_step_"):
                 pass
             elif (name.startswith("step_") and ".corrupt" not in name
                     and name[len("step_"):].isdigit()
@@ -305,9 +316,8 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
     manifest = (_manifest if _manifest is not None
                 else _load_manifest(ckpt_dir, step))
     if manifest.get("format") == "sharded":
-        raise NotImplementedError(
-            "checkpoint step %d is in the sharded multi-host format, which "
-            "the port does not read yet" % step)
+        return restore_checkpoint_sharded(ckpt_dir, step=step,
+                                          _manifest=manifest)
     try:
         with np.load(os.path.join(path, "state.npz")) as npz:
             flat = {k: npz[k] for k in npz.files}
@@ -330,26 +340,202 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
     return bridge.unflatten(manifest["structure"], flat), manifest
 
 
-def restore_latest(ckpt_dir: str) -> Tuple[Any, dict]:
+def save_checkpoint_sharded(ckpt_dir: str, step: int, state: Any,
+                            meta: Optional[dict] = None, keep: int = 3,
+                            group: collectives.Group = None) -> str:
+    """Write ``state``, replicated on every rank of ``group`` (``None``:
+    one process), in the sharded format: rank 0 writes each leaf as one
+    full-extent shard ``<path>.s0.npy``, every rank writes its index part,
+    rank 0 merges the parts, writes ``shards.json`` and the manifest in
+    the staging directory and renames it into place. Every rank calls
+    this at the same step; barriers as the reference's (staging clean,
+    shards written, index parts written, step published)."""
+    rank = dist.get_rank(group) if group is not None else 0
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = _step_dir(ckpt_dir, step)
+    # hidden from all_steps (no "step_" prefix); wiped before use so a
+    # crashed prior attempt cannot leak stale shards into this one
+    staging = os.path.join(ckpt_dir, ".partial_step_%012d" % step)
+    if rank == 0 and os.path.exists(staging):
+        shutil.rmtree(staging)
+    collectives.barrier(group)
+    os.makedirs(staging, exist_ok=True)
+
+    index: Dict[str, Any] = {}
+    for path, leaf in bridge.flatten(state).items():
+        shape = tuple(leaf.shape)
+        dtype = str(torch.empty(0, dtype=leaf.dtype).numpy().dtype
+                    if isinstance(leaf, torch.Tensor) else leaf.dtype)
+        entries = []
+        if rank == 0:
+            host = _owned_host(leaf)
+            fname = "%s.s0.npy" % path.replace("/", "__")
+            np.save(os.path.join(staging, fname), host)
+            entries.append({"file": fname,
+                            "slices": [[0, dim] for dim in shape],
+                            "crc32": _leaf_crc(host)})
+        index[path] = {"shape": list(shape), "dtype": dtype,
+                       "shards": entries}
+
+    if group is not None:
+        collectives.barrier(group)
+        part = os.path.join(staging, "index.p%d.json" % rank)
+        with open(part, "w") as f:
+            json.dump(index, f)
+        collectives.barrier(group)
+        if rank == 0:
+            merged: Dict[str, Any] = {}
+            for pi in range(dist.get_world_size(group)):
+                part = os.path.join(staging, "index.p%d.json" % pi)
+                with open(part) as f:  # a missing part is a hard error
+                    data = json.load(f)
+                for k, v in data.items():
+                    if k in merged:
+                        merged[k]["shards"].extend(v["shards"])
+                    else:
+                        merged[k] = v
+                os.remove(part)
+            index = merged
+
+    if rank == 0:
+        for entry in index.values():
+            _check_coverage(entry)
+        with open(os.path.join(staging, "shards.json"), "w") as f:
+            json.dump(index, f)
+        with open(os.path.join(staging, "manifest.json"), "w") as f:
+            json.dump({"step": step, "structure": bridge.structure(state),
+                       "meta": meta or {}, "format": "sharded",
+                       "format_version": FORMAT_VERSION,
+                       "commit": COMMIT_MARKER}, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(staging, final)
+        log.info("sharded checkpoint saved: %s", final)
+        gc_checkpoints(ckpt_dir, keep_last_n=keep)
+    # publish barrier: no rank lists the directory while rank 0 renames
+    # and prunes, so every rank restores the same step
+    collectives.barrier(group)
+    return final
+
+
+def _check_coverage(entry: Dict[str, Any]) -> None:
+    """The shards must tile the whole array (distinct replica-0 shards are
+    disjoint): a lost index part fails here, not as zeros at restore."""
+    total = int(np.prod(entry["shape"], dtype=np.int64))
+    covered = 0
+    for shard in entry["shards"]:
+        if shard["slices"] is None:
+            covered += total
+            continue
+        covered += int(np.prod([b - a for a, b in shard["slices"]],
+                               dtype=np.int64))
+    if covered != total:
+        raise CorruptCheckpointError(
+            "sharded checkpoint coverage mismatch: %d/%d elements "
+            "(lost shards or overlapping tiles)" % (covered, total))
+
+
+def _load_shard(path: str, dtype_str: str, crc: Optional[int]) -> np.ndarray:
+    want = np.dtype(dtype_str)
+    try:
+        data = np.load(path)
+    except FileNotFoundError:
+        raise CorruptCheckpointError("checkpoint shard %s is missing" % path)
+    except (ValueError, OSError) as e:
+        raise CorruptCheckpointError(
+            "checkpoint shard %s is unreadable: %s" % (path, e))
+    if crc is not None and _leaf_crc(data) != crc:
+        raise CorruptCheckpointError(
+            "checkpoint shard %s failed its CRC32 check (bit rot or torn "
+            "write)" % path)
+    return data if data.dtype == want else data.view(want)
+
+
+def restore_checkpoint_sharded(ckpt_dir: str, step: Optional[int] = None,
+                               _manifest: Optional[dict] = None
+                               ) -> Tuple[Any, dict]:
+    """Load a sharded step as ``(state, manifest)``, each leaf assembled
+    on the host from its shards (whatever tiling wrote them: the port's
+    one shard a leaf, or the JAX package's per-device tiles)."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError("no checkpoints under %s" % ckpt_dir)
+    path = _step_dir(ckpt_dir, step)
+    manifest = (_manifest if _manifest is not None
+                else _load_manifest(ckpt_dir, step))
+    if manifest.get("format") != "sharded":
+        raise ValueError("checkpoint at step %d is not sharded format" % step)
+    try:
+        with open(os.path.join(path, "shards.json")) as f:
+            index = json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError, UnicodeDecodeError,
+            OSError) as e:
+        raise CorruptCheckpointError(
+            "sharded checkpoint step %d has no usable shards.json: %s"
+            % (step, e))
+    flat = {}
+    for key, entry in index.items():
+        _check_coverage(entry)
+        out = np.zeros(tuple(entry["shape"]), np.dtype(entry["dtype"]))
+        for shard in entry["shards"]:
+            data = _load_shard(os.path.join(path, shard["file"]),
+                               entry["dtype"], shard.get("crc32"))
+            if shard["slices"] is None:
+                out = data
+                break
+            out[tuple(slice(a, b) for a, b in shard["slices"])] = data
+        flat[key] = out
+    log.info("sharded checkpoint restored: %s", path)
+    return bridge.unflatten(manifest["structure"], flat), manifest
+
+
+def restore_latest(ckpt_dir: str,
+                   group: collectives.Group = None) -> Tuple[Any, dict]:
     """Restore the newest step that loads, walking newest -> oldest and
     quarantining every torn or checksum-corrupt step on the way. Raises
-    FileNotFoundError when no valid step survives."""
+    FileNotFoundError when no valid step survives.
+
+    With a ``group`` of several ranks, every round is agreed: the step
+    tried is the oldest of the ranks' newest, it counts only if every
+    rank loaded it, and a quarantine is seen by every rank before the
+    next round lists the directory, so the ranks never resume from
+    different steps."""
+    multi = group is not None and dist.get_world_size(group) > 1
     while True:
         steps = _listed_steps(ckpt_dir)
-        if not steps:
+        step = steps[-1] if steps else -1
+        if multi:
+            step = collectives.min_int(step, group)
+        if step < 0:
             raise FileNotFoundError(
                 "no restorable checkpoints under %s" % ckpt_dir)
-        step = steps[-1]
+        result = None
+        failure: Optional[CorruptCheckpointError] = None
         try:
             manifest = _load_manifest(ckpt_dir, step)
-            return restore_checkpoint(ckpt_dir, step=step,
-                                      _manifest=manifest)
+            result = restore_checkpoint(ckpt_dir, step=step,
+                                        _manifest=manifest)
         except CorruptCheckpointError as e:
-            log.warning("checkpoint step %d is unusable (%s); falling back "
-                        "to the previous step", step, e)
-            if quarantine_step(ckpt_dir, step) is None \
-                    and os.path.isdir(_step_dir(ckpt_dir, step)):
-                raise
+            failure = e
+        ok = failure is None
+        if multi:
+            ok = bool(collectives.min_int(int(ok), group))
+        if ok:
+            return result
+        log.warning("checkpoint step %d is unusable (%s); falling back "
+                    "to the previous step", step,
+                    failure if failure is not None
+                    else "a peer process saw corruption")
+        if quarantine_step(ckpt_dir, step) is None \
+                and os.path.isdir(_step_dir(ckpt_dir, step)):
+            raise failure if failure is not None else \
+                CorruptCheckpointError(
+                    "step %d failed on a peer process and could not be "
+                    "quarantined" % step)
+        if multi:
+            # the rename is seen by every rank before the next listing
+            collectives.barrier(group)
 
 
 def load_into(state: Any, restored: Any) -> Any:

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_operator_tpu_torch import bridge, data, launch
+from paddle_operator_tpu_torch import bridge, data, dp_check, launch
 from paddle_operator_tpu_torch.models import resnet as tres
 from paddle_operator_tpu_torch.ops import optim as topt
 from paddle_operator_tpu_torch.runner import DrainMonitor, TrainJob, \
@@ -237,21 +237,48 @@ def test_deferred_metrics_resolve_previous_boundary():
     {"TPU_WORKER_ID": "1", "TPU_WORKER_HOSTNAMES": "a,b",
      "MEGASCALE_NUM_SLICES": "2", "MEGASCALE_SLICE_ID": "1",
      "MEGASCALE_COORDINATOR_ADDRESS": "m0:8080"},
+    {"TPUJOB_NUM_WORKERS": "2", "TPUJOB_WORKER_ID": "1",
+     "TPUJOB_COORDINATOR": "w0:1234", "TPU_WORKER_HOSTNAMES": "a,b"},
+    {"TPU_WORKER_ID": "0", "TPU_WORKER_HOSTNAMES": "a,b",
+     "MEGASCALE_NUM_SLICES": "2"},
 ])
 def test_detect_env_matches_jax(env):
+    """Every field of the port's config, the coordinator included, as the
+    reference detects it; a multislice env that cannot name the slice-0
+    coordinator raises in both."""
     from paddle_operator_tpu import launch as jlaunch
 
-    want = jlaunch.detect_env(dict(env))
+    try:
+        want = jlaunch.detect_env(dict(env))
+    except RuntimeError as e:
+        with pytest.raises(RuntimeError) as got_e:
+            launch.detect_env(dict(env))
+        assert str(got_e.value) == str(e)
+        return
     got = launch.detect_env(dict(env))
+    assert got.coordinator == want.coordinator
     assert got.__dict__ == {k: getattr(want, k) for k in got.__dict__}
     assert (got.is_distributed, got.is_elastic) == (
         want.is_distributed, want.is_elastic)
 
 
-def test_initialize_distributed_single_process_only():
-    launch.initialize_distributed(launch.LaunchConfig())
-    with pytest.raises(NotImplementedError):
-        launch.initialize_distributed(launch.LaunchConfig(num_workers=2))
+def test_initialize_distributed_single_process_only(tmp_path):
+    """A world of one process is a no-op; a two-process world comes up
+    over gloo from the operator's env (``python -m
+    paddle_operator_tpu_torch.launch``), and its ranks agree on rank and
+    size."""
+    assert launch.initialize_distributed(launch.LaunchConfig()) is False
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="coordinator"):
+        launch.initialize_distributed(launch.LaunchConfig(num_workers=2),
+                                      device="cpu")
+    ranks = dp_check.launch_workers(
+        {"out": str(tmp_path), "scenarios": [{"kind": "world",
+                                              "name": "world"}]},
+        world=2, backend="gloo", timeout=120)
+    assert [[(r["rank"], r["size"], r["backend"], r["sum_of_ranks_plus_1"])
+             for r in lines] for lines in ranks] == [
+        [(0, 2, "gloo", 3.0)], [(1, 2, "gloo", 3.0)]]
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from paddle_operator_tpu_torch import bridge
 from paddle_operator_tpu_torch.models import resnet as tres
 from paddle_operator_tpu_torch.ops import optim as topt
 from paddle_operator_tpu_torch.parallel import build_train_step
+from paddle_operator_tpu_torch.parallel.mesh import make_mesh
 from paddle_operator_tpu_torch.utils.checkpoint import load_into
 
 jax = pytest.importorskip("jax")
@@ -173,5 +174,24 @@ def test_state_is_a_copy_and_updates_in_place(tree):
 
 
 def test_mesh_is_refused(tree):
+    """What the dp-only port cannot shard still raises: a mesh axis other
+    than dp, a sequence axis, and sharding rules over an axis of the
+    mesh. Rules over axes the mesh lacks mean "replicated", as in the
+    reference (``tests/test_parallel.py::test_rules_survive_missing_axis``)."""
     with pytest.raises(NotImplementedError):
-        build_train_step(tres.loss_fn, topt.sgd(0.1), {}, {}, mesh=object())
+        make_mesh({"dp": 1, "tp": 2}, world=2)
+    mesh = make_mesh({"dp": 1})
+    params = bridge.params_from_numpy(tree, device="cpu")
+    batch = bridge.params_from_numpy(_batches("plain")[0], device="cpu")
+    args = (tres.loss_fn, topt.sgd(0.1), params, batch)
+    with pytest.raises(NotImplementedError):
+        build_train_step(*args, mesh=mesh, seq_axis="sp")
+    with pytest.raises(NotImplementedError):
+        build_train_step(*args, mesh=mesh,
+                         rules=[(r"head/fc/kernel", (None, "dp"))])
+    with pytest.raises(ValueError):
+        build_train_step(*args, mesh=mesh, batch_axis="data")
+    step, state = build_train_step(
+        *args, mesh=mesh, rules=[(r"head/fc/kernel", (None, "fsdp"))])
+    assert mesh.group is None and state["params"]["head"]["fc"][
+        "kernel"].shape == params["head"]["fc"]["kernel"].shape
