@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the six ported paths:
+path. Then it drives the seven ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -36,10 +36,16 @@ path. Then it drives the six ported paths:
   ``python -m paddle_operator_tpu_torch.launch``, training ResNet-50 and
   GPT-2 small (2 layers) against one process, with a planted fault;
   gates in ``phase_train_dp``.
+* train_sp: sequence parallelism, four worker processes sharing the card
+  over gloo: ring (every hop on the flash kernels) and Ulysses attention
+  alone against one process's flash attention, GPT-2 small with
+  ``TPUJOB_SP=4`` over 4096-token sequences and a dp2 x sp2 run against
+  one process, with three planted faults; gates in ``phase_train_sp``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
-non-zero without that last line. Without CUDA it exits 2.
+non-zero without that last line. Without CUDA it exits 2. On a machine
+of four or more cards, phase train_sp runs over NCCL, one card a worker.
 """
 
 from __future__ import annotations
@@ -450,24 +456,34 @@ def _flash_planted(q, k, v, g, got, want) -> dict:
                                        want[n]) for n in shifted}}
 
 
-def _flash_lse_entry(q, k, v, g, causal) -> dict:
+def _flash_lse_entry(q, k, v, g, causal):
     """flash_attention_lse through autograd on the card, with a nonzero
-    LSE cotangent, against the plain forward and backward (delta less the
-    LSE cotangent)."""
+    LSE cotangent: the forward against the plain forward, and the
+    gradients against the plain backward on the operands autograd hands
+    the backward kernels (the kernels' O and LSE, delta from that O less
+    the LSE cotangent). Returns those errors and, recorded only, the
+    gradients against the plain backward on the plain forward's O and
+    LSE (the chain): in bf16 the two O part by up to an ulp, and
+    ``dP - delta`` cancels on rows of few keys, so the chain's dQ and dK
+    may part by many ulps while each kernel is within one."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     g_lse = torch.randn(q.shape[:3], generator=gen, device=DEVICE)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out, lse = attention.flash_attention_lse(*leaves, causal=causal)
     grads = torch.autograd.grad((out, lse), leaves, (g, g_lse))
+    out, lse = out.detach(), lse.detach()
     scale = q.shape[-1] ** -0.5
     w_out, w_lse = attention._plain_flash_fwd(q, k, v, scale, causal)
-    delta = torch.sum(g.float() * w_out.float(), dim=-1) - g_lse
-    args = (q, k, v, g, w_lse, delta, scale, causal)
-    w_dk, w_dv = attention._plain_flash_dkv(*args)
     got = dict(zip(("o", "lse", "dq", "dk", "dv"), (out, lse, *grads)))
-    want = {"o": w_out, "lse": w_lse,
-            "dq": attention._plain_flash_dq(*args), "dk": w_dk, "dv": w_dv}
-    return _flash_errors(got, want)
+    errors = {}
+    for name, (o, l) in (("kernels", (out, lse)), ("chain", (w_out, w_lse))):
+        delta = torch.sum(g.float() * o.float(), dim=-1) - g_lse
+        args = (q, k, v, g, l, delta, scale, causal)
+        w_dk, w_dv = attention._plain_flash_dkv(*args)
+        errors[name] = _flash_errors(got, {
+            "o": w_out, "lse": w_lse, "dq": attention._plain_flash_dq(*args),
+            "dk": w_dk, "dv": w_dv})
+    return errors["kernels"], errors["chain"]
 
 
 def flash_bound(kind: str, shape, dtype, causal: bool, rate: float):
@@ -535,10 +551,36 @@ def _flash_rerun(q, k, v, got, args) -> dict:
                             ("dk", dk), ("dv", dv))}
 
 
+def _flash_sp(cases) -> list:
+    """Each flash kernel against its plain version at every shape and type
+    phase train_sp gives it (``cases``, :data:`SP_FLASH_CASES`): a ring
+    hop through ``flash_attention_lse`` with a nonzero LSE cotangent, as
+    the merge gives it; Ulysses and one process over the whole sequence
+    through B2a, B2b and B2c."""
+    out = []
+    for i, (what, shape, dtype, causal) in enumerate(cases):
+        q, k, v, g = _flash_inputs(*shape, getattr(torch, dtype),
+                                   seed=20 + i)
+        case = {"case": what, "shape": list(shape), "dtype": dtype,
+                "causal": causal}
+        if what == "ring_hop":
+            case["errors"], case["chain"] = _flash_lse_entry(q, k, v, g,
+                                                             causal)
+        else:
+            got, want, _ = _flash_compare(q, k, v, g, causal)
+            case["errors"] = _flash_errors(got, want)
+            del got, want
+        del q, k, v, g
+        torch.cuda.empty_cache()
+        out.append(case)
+    return out
+
+
 def _flash_measure(rate: float) -> dict:
     """Kernels B2a/B2b/B2c against their plain versions: fp32 at B=2, H=4,
     S=512, D in {64, 128}, and bf16 there at D in {64, 128, 256} (on the
     tensor cores), causal and not; the LSE entry point through autograd;
+    every shape of phase train_sp (:func:`_flash_sp`);
     bf16 at the training path's shape (16 x 12 x 1024 x 64, causal), where
     B2a, B2b and B2c are also launched twice and must agree bit for bit,
     their rounding model is held to the bf16 rule (and a single rounding
@@ -549,8 +591,10 @@ def _flash_measure(rate: float) -> dict:
     small = _flash_small(torch.float32, (64, 128))
     small_bf16 = _flash_small(torch.bfloat16, (64, 128, 256))
     q, k, v, g = _flash_inputs(2, 4, 512, 64, torch.float32, seed=3)
+    errors, chain = _flash_lse_entry(q, k, v, g, True)
     lse_entry = {"shape": [2, 4, 512, 64], "causal": True,
-                 "errors": _flash_lse_entry(q, k, v, g, True)}
+                 "errors": errors, "chain": chain}
+    sp = _flash_sp(SP_FLASH_CASES)
 
     shape = (GPT_BATCH, gpt.BASE_CONFIG["heads"], GPT_SEQ,
              gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"])
@@ -592,7 +636,7 @@ def _flash_measure(rate: float) -> dict:
                       "bound_ms": bound, "bound_by": by, "flops": flops,
                       "bytes": nbytes, "tflop_per_s": flops / ms / 1e9}
     return {"small_fp32": small, "small_bf16": small_bf16,
-            "lse_entry": lse_entry,
+            "lse_entry": lse_entry, "sp": sp,
             "path": {"shape": list(shape), "dtype": "bf16", "causal": True,
                      "errors": path_errors, "planted_faults": planted,
                      "rerun_bitwise": rerun, "rounding_model": rounding,
@@ -605,7 +649,7 @@ def _flash_measure(rate: float) -> dict:
 
 def _flash_cases(flash: dict) -> list:
     """Every case held to the flash tolerances, small and at the path."""
-    return (flash["small_fp32"] + flash["small_bf16"]
+    return (flash["small_fp32"] + flash["small_bf16"] + flash["sp"]
             + [flash["lse_entry"], flash["path"]])
 
 
@@ -615,9 +659,10 @@ def _flash_failures(flash: dict) -> list:
         for name, e in case["errors"].items():
             if not e["worst"] <= 1.0:
                 problems.append("flash %s off by %g, %g times its bound, at "
-                                "%r causal=%s" % (name, e["max_abs_err"],
-                                                  e["worst"], case["shape"],
-                                                  case["causal"]))
+                                "%r %s causal=%s" % (
+                                    name, e["max_abs_err"], e["worst"],
+                                    case["shape"], case.get("dtype", ""),
+                                    case["causal"]))
     for fault, errors in flash["path"]["planted_faults"].items():
         for name, e in errors.items():
             if not e["worst"] > 1.0:
@@ -2414,11 +2459,12 @@ def _rel_diffs(got: list, want: list) -> float:
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
-def _dp_summary(rs: list, single: dict) -> dict:
+def _dp_summary(rs: list, single: dict, shards: int = 1) -> dict:
     """The workers' run ``rs`` (one line a rank) against one process's.
     A worker's loss_fn sees its block's loss; the global batch's is their
-    mean (equal blocks)."""
-    losses = [statistics.fmean(step)
+    mean (equal blocks), times ``shards`` under a sequence split (a
+    rank's loss is its sequence block's part of its replica's)."""
+    losses = [statistics.fmean(step) * shards
               for step in zip(*(r["losses"] for r in rs))]
     return {
         "mesh_history": [r["mesh_history"] for r in rs],
@@ -2589,6 +2635,243 @@ def phase_train_dp(smi: str, train_losses: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_sp: sequence parallelism, four gloo workers sharing the card
+# ---------------------------------------------------------------------------
+
+#: the workers of the phase (one world for (a), (b) and (c))
+SP_WORKERS = 4
+#: (a) ring and Ulysses attention alone: [B, H, S, D], causal, over
+#: {"sp": 4} (S/n = 1024: every ring hop runs the kernels)
+SP_ATTN_SHAPE = (4, 12, 4096, 64)
+#: every (case, [B, H, S, D], dtype, causal) at which this phase runs the
+#: flash kernels, held against their plain versions in the kernels phase:
+#: a ring hop's block, hop 0 causal and the rotated hops not, at sp 4 in
+#: (a)'s two types (and (b)'s bf16), and at (c)'s dp2 x sp2 in bf16;
+#: Ulysses' H/n heads over the whole sequence in (a)'s two types; one
+#: process over the whole sequence, the reference of (a), (b) and (c)
+SP_FLASH_CASES = tuple(
+    [("ring_hop", (4, 12, 1024, 64), dtype, causal)
+     for dtype in ("bfloat16", "float32") for causal in (True, False)]
+    + [("ring_hop", (2, 12, 2048, 64), "bfloat16", causal)
+       for causal in (True, False)]
+    + [("ulysses", (4, 3, 4096, 64), dtype, True)
+       for dtype in ("bfloat16", "float32")]
+    + [("one_process", SP_ATTN_SHAPE, dtype, True)
+       for dtype in ("bfloat16", "float32")])
+#: (b) GPT-2 small at full width and depth with TPUJOB_SP=4, and (c)
+#: dp2 x sp2 at 2 layers: steps of each run
+SP_STEPS, SP_DPSP_STEPS = 3, 2
+#: |loss(sp workers) - loss(one process)| / loss allowed at each step:
+#: train_gpt's einsum-against-flash class. The runs differ in rounding
+#: only: each ring hop's attention output is rounded to bf16 before the
+#: fp32 merge (the one process rounds once), the matmuls run on a
+#: quarter of the rows, and the loss and gradients are summed over the
+#: blocks. On an H100 80GB HBM3 at 700 W the sp4 run parted by 3.1e-6
+#: over gloo and 1.6e-6 over NCCL
+SP_LOSS_RTOL = 2e-5
+
+
+def _sp_flash_per_step(layers: int, sp: int) -> dict:
+    """Flash launches of a rank a step on the sp path, from the code:
+    each layer's ring runs one forward a hop (n hops), twice under remat
+    (the forward and its recompute), and one dq and one dkv a hop in the
+    backward."""
+    return {"flash_fwd": 2 * layers * sp, "flash_dq": layers * sp,
+            "flash_dkv": layers * sp}
+
+
+def _sp_scenarios(grad_ref: str) -> list:
+    """The phase's scenarios, in one four-worker world: (a) each
+    attention function in bf16 and fp32, compared in the workers; (b)
+    step 0's GPT-2 small sp4 gradients against one process's (saved at
+    ``grad_ref``), sound and under each planted fault, and the sp4 run
+    (profiled); (c) the dp2 x sp2 run."""
+    out = [{"kind": "attn", "name": "attn_%s_%s" % (fn, dtype),
+            "fn": fn, "impl": "auto", "dtype": dtype,
+            "shape": list(SP_ATTN_SHAPE), "causal": True, "seed": 0,
+            "mesh": {"sp": SP_WORKERS}, "device": DEVICE, "compare": True}
+           for fn in ("ring", "ulysses") for dtype in ("bfloat16",
+                                                      "float32")]
+    for fault in ("",) + dp_check.SP_FAULTS:
+        out.append({"kind": "grads", "name": "grads_" + (fault or "sound"),
+                    "model": "gpt2_sp4", "ref": grad_ref, "fault": fault})
+    out.append({"kind": "run", "name": "gpt2_sp4", "model": "gpt2_sp4",
+                "steps": SP_STEPS, "profile": True})
+    out.append({"kind": "run", "name": "gpt2_2layers_dp2_sp2",
+                "model": "gpt2_2layers_dp2_sp2", "steps": SP_DPSP_STEPS})
+    return out
+
+
+def _sp_attn_problems(lines: list) -> list:
+    """Every rank's attention check within its class, with n forward
+    launches a ring call and n dq and n dkv in its backward (Ulysses:
+    one each)."""
+    problems = []
+    for r in lines:
+        n = SP_WORKERS if r["fn"] == "ring" else 1
+        want = {"forward": {"fwd": n, "dq": 0, "dkv": 0},
+                "call": {"fwd": n, "dq": n, "dkv": n}}
+        if not r["ok"]:
+            problems.append("%s %s rank %d outside its class: %r"
+                            % (r["fn"], r["dtype"], r["rank"], r["errors"]))
+        if r["launches"] != want:
+            problems.append("%s %s rank %d launched %r, expected %r"
+                            % (r["fn"], r["dtype"], r["rank"],
+                               r["launches"], want))
+    return problems
+
+
+def _sp_run_problems(name: str, run: dict, steps: int, mesh: dict,
+                     per_step: dict) -> list:
+    """The gates of a sound sp run (:func:`_dp_summary`): its mesh on every
+    rank, equal replicas after every step, losses within SP_LOSS_RTOL of
+    one process's, the flash launches of a rank, finite losses."""
+    problems = []
+    if run["mesh_history"] != [[mesh]] * SP_WORKERS:
+        problems.append("%s workers had meshes %r" % (name,
+                                                      run["mesh_history"]))
+    if not run["replicas_equal_after_each_step"] \
+            or run["steps_fingerprinted"] != [steps] * SP_WORKERS:
+        problems.append("%s replicas differ after a step" % name)
+    if not run["max_rel_loss_diff_vs_one_process"] <= SP_LOSS_RTOL:
+        problems.append("%s losses part from one process's by %g"
+                        % (name, run["max_rel_loss_diff_vs_one_process"]))
+    want = {k: v * steps for k, v in per_step.items()}
+    for r in run["launches"]:
+        if any(r[k] != v for k, v in want.items()):
+            problems.append("%s launches %r, expected %r" % (name, r, want))
+    if len(run["losses"]) != steps \
+            or not all(np.isfinite(x) for x in run["losses"]):
+        problems.append("%s: a loss is missing or not finite" % name)
+    return problems
+
+
+def phase_train_sp(smi: str) -> dict:
+    """Sequence parallelism through the port's sp path (an sp mesh axis,
+    ring attention on the flash kernels' LSE entry, the sequence block in
+    the loss, the gradient sum over sp), four workers started through
+    ``python -m paddle_operator_tpu_torch.launch`` in one world: over
+    NCCL, one card a worker, where the machine has four cards, else on
+    this one card over gloo (NCCL refuses two ranks on one device; phase
+    train_dp prints its words). The kernels phase holds B2 against its
+    plain versions at every shape this phase gives it (``SP_FLASH_CASES``):
+
+    (a) ring attention (every hop on the kernels) and Ulysses attention
+        alone on {"sp": 4} at SP_ATTN_SHAPE, causal, in bf16 and fp32:
+        each rank's block of the output and of the gradients of q, k and
+        v against one process's flash attention over the whole sequence
+        (fp32: 2e-5 forward, 2e-4 gradients, the reference's classes;
+        bf16: ``dp_check.BF16_HOP`` and ``bf16_grad_rtol``, derived in
+        PERF.md), and n flash forward launches a ring call, n dq and n
+        dkv in its backward;
+    (b) GPT-2 small (12 layers, 768 wide) through
+        ``examples/train_gpt.make_job`` with TPUJOB_SEQ=4096,
+        TPUJOB_BATCH=4, TPUJOB_SP=4 for SP_STEPS steps against one
+        process training the same global batches over the whole sequence
+        on the flash kernels: replicas equal bit for bit after every
+        step, losses within SP_LOSS_RTOL, the flash launches of a rank a
+        step (:func:`_sp_flash_per_step`), and step 0's gradients, summed
+        over sp as the train step sums them, within GPT_GRAD_RTOL of one
+        process's (every leaf; train_gpt's gradient class); three planted
+        faults (the causal test on rotated hops reversed, rope at local
+        positions, the sp gradient sum left out) must each break the
+        gradient gate (at random init on random tokens the loss barely
+        sees attention: the first two moved it by 5.8e-6 and 7.6e-6 on
+        an H100);
+    (c) the same at 2 layers over {"dp": 2, "sp": 2} (TPUJOB_SP=2) for
+        SP_DPSP_STEPS steps, against one process.
+
+    Step ms, the ring's transfers and the flash ms of a rank are printed,
+    not gated: on gloo four workers share one card."""
+    t0 = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= SP_WORKERS else "gloo"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    try:
+        one = {"gpt2_sp4": dp_check.card_run("gpt2_seq4096", SP_STEPS),
+               "gpt2_2layers_dp2_sp2": dp_check.card_run(
+                   "gpt2_2layers_seq4096", SP_DPSP_STEPS)}
+        grad_ref = os.path.join(tmp, "grads.pt")
+        torch.save(dp_check.step0_grads("gpt2_seq4096"), grad_ref)
+        torch.cuda.empty_cache()
+        lines = dp_check.launch_workers(
+            {"out": os.path.join(tmp, "workers"),
+             "scenarios": _sp_scenarios(grad_ref)},
+            world=SP_WORKERS, backend=backend, timeout=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by_name: dict = {}
+    for rank_lines in lines:
+        for line in rank_lines:
+            by_name.setdefault(line["scenario"], []).append(line)
+    by_name = {k: sorted(v, key=lambda r: r["rank"])
+               for k, v in by_name.items()}
+    attn = [r for k, v in by_name.items() if k.startswith("attn_")
+            for r in v]
+    runs = {"gpt2_sp4": _dp_summary(by_name["gpt2_sp4"], one["gpt2_sp4"],
+                                    SP_WORKERS),
+            "gpt2_2layers_dp2_sp2": _dp_summary(
+                by_name["gpt2_2layers_dp2_sp2"],
+                one["gpt2_2layers_dp2_sp2"], 2)}
+    sound = by_name["gpt2_sp4"]
+    hops = [r["transfers"] for r in sound]
+    out = {
+        "phase": "train_sp", "card": smi, "backend": backend,
+        "note": "four worker processes share this one card over gloo: a "
+                "correctness check, not a multi-GPU rate"
+                if backend == "gloo" else "four workers, one card each",
+        "attention": [{k: r[k] for k in ("fn", "dtype", "rank", "ok",
+                                         "errors", "launches", "seconds")}
+                      for r in attn],
+        "gpt2_sp4": runs["gpt2_sp4"],
+        "step0_grads": by_name["grads_sound"],
+        "planted": {f: by_name["grads_" + f] for f in dp_check.SP_FAULTS},
+        "gpt2_2layers_dp2_sp2": runs["gpt2_2layers_dp2_sp2"],
+        "ring_transfers_per_rank": hops,
+        "ring_hop_ms_per_rank": [
+            1e3 * h["seconds"] / max(1, h["ring_shift"]) for h in hops],
+        "flash_ms_per_step_per_rank": [r["flash_ms_per_step"]
+                                       for r in sound],
+        "tolerance": {"loss_rel": SP_LOSS_RTOL, "grad_rel": GPT_GRAD_RTOL,
+                      "attn_bf16_hop": dp_check.BF16_HOP,
+                      "attn_bf16_grad_rel": dp_check.bf16_grad_rtol(
+                          SP_WORKERS)},
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(out)
+    print("train_sp (%s, %s): median step ms one process / four workers "
+          "(steps 2 on): GPT-2 sp4 %.2f / %s; ring hop transfer ms (host) "
+          "%s; flash ms a step %s; phase %.1f s" % (
+                      smi, backend,
+                      statistics.median(one["gpt2_sp4"]["step_ms"][1:]),
+                      [statistics.median(r["step_ms"][1:]) for r in sound],
+                      ["%.2f" % x for x in out["ring_hop_ms_per_rank"]],
+                      ["%.2f" % x for x in out["flash_ms_per_step_per_rank"]],
+                      out["seconds"]), flush=True)
+    problems = _sp_attn_problems(attn)
+    if len(attn) != 4 * SP_WORKERS:
+        problems.append("%d attention lines, expected %d"
+                        % (len(attn), 4 * SP_WORKERS))
+    problems += _sp_run_problems("gpt2_sp4", runs["gpt2_sp4"], SP_STEPS,
+                                 {"dp": 1, "sp": SP_WORKERS},
+                                 _sp_flash_per_step(12, SP_WORKERS))
+    problems += _sp_run_problems("gpt2_2layers_dp2_sp2",
+                                 runs["gpt2_2layers_dp2_sp2"], SP_DPSP_STEPS,
+                                 {"dp": 2, "sp": 2}, _sp_flash_per_step(2, 2))
+    for g in by_name["grads_sound"]:
+        if not g["max_rel_diff"] <= GPT_GRAD_RTOL:
+            problems.append("rank %d's step-0 gradients part from one "
+                            "process's by %g at %s" % (
+                                g["rank"], g["max_rel_diff"], g["leaf"]))
+    for fault, grads in out["planted"].items():
+        if all(g["max_rel_diff"] <= GPT_GRAD_RTOL for g in grads):
+            problems.append("the gradient gate missed the planted fault %s"
+                            % fault)
+    if problems:
+        fail("train_sp: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2612,6 +2895,7 @@ def main() -> int:
     bert_out = phase_train_bert(env["nvidia_smi"])
     dp_out = phase_train_dp(env["nvidia_smi"],
                             train["losses"]["fused_sgd"])
+    sp_out = phase_train_sp(env["nvidia_smi"])
     paged_shapes = kernels["kernels"][0]["shapes"]
     full = next(s for s in paged_shapes if s["case"] == "full_width"
                 and s["q_dtype"] == s["kv_dtype"] == str(torch.float32))
@@ -2650,7 +2934,11 @@ def main() -> int:
           "bert_moe_launches": bert_out["bert_base_moe"]["launches"],
           "dp_launches_per_rank": {
               "fused_sgd": dp_out["two_workers_resnet50"]["launches"],
-              "flash": dp_out["two_workers_gpt2_2layers"]["launches"]}})
+              "flash": dp_out["two_workers_gpt2_2layers"]["launches"]},
+          "sp_flash_launches_per_rank": {
+              "gpt2_sp4": sp_out["gpt2_sp4"]["launches"],
+              "gpt2_2layers_dp2_sp2":
+                  sp_out["gpt2_2layers_dp2_sp2"]["launches"]}})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,

@@ -20,19 +20,24 @@ einsum formulation.
 
 Under ``python -m paddle_operator_tpu_torch.launch`` with several
 workers, ``run_training`` splits the global batch (``TPUJOB_BATCH``)
-over a ``dp`` mesh. Not ported yet: ``TPUJOB_SP > 1`` (ring attention
-over a sequence mesh) raises, and so does MoE under a dp mesh of more
-than one worker (ROADMAP A9). The reference's sharding rules
-(``gpt_rules``, ``moe_rules``) shard over tp and ep only, which a dp mesh
-lacks, so they are not carried.
+over a ``dp`` mesh. ``TPUJOB_SP > 1`` is the long-context mode, as in
+the reference: the mesh is ``{"dp": -1, "sp": SP}``, each worker holds
+1/SP of every sequence, and attention is causal ring attention over
+``sp`` (:func:`..parallel.context.ring_attention`: the flash kernels on
+every hop on CUDA), with ``seq_axis="sp"``. MoE under a dp mesh of more
+than one worker, or with ``TPUJOB_SP > 1``, raises (ROADMAP A9). The
+reference's sharding rules (``gpt_rules``, ``moe_rules``) shard over tp
+and ep only, which a dp x sp mesh lacks, so they are not carried.
 """
 
+import functools
 import logging
 import os
 from typing import Any, Mapping, Optional
 
 from paddle_operator_tpu_torch.models import gpt
 from paddle_operator_tpu_torch.ops import optim
+from paddle_operator_tpu_torch.parallel import context
 from paddle_operator_tpu_torch.runner import TrainJob, run_training
 
 
@@ -43,13 +48,12 @@ def _int(env: Mapping[str, str], knob: str, default: int) -> int:
 def make_job(env: Optional[Mapping[str, str]] = None,
              attn_impl: Any = "auto") -> TrainJob:
     """The TrainJob of the example, from ``env`` (default: the process
-    environment). ``attn_impl`` is the attention the loss runs: "auto"
-    (the kernels on CUDA) unless a caller compares paths."""
+    environment). ``attn_impl`` is the attention the loss runs without
+    a sequence split: "auto" (the kernels on CUDA) unless a caller
+    compares paths; with ``TPUJOB_SP > 1`` it is ring attention over the
+    mesh's sp axis."""
     env = os.environ if env is None else env
-    if _int(env, "TPUJOB_SP", 1) > 1:
-        raise NotImplementedError(
-            "TPUJOB_SP>1 (sequence-parallel ring attention) is not ported "
-            "yet; the port's mesh is dp only")
+    sp = _int(env, "TPUJOB_SP", 1)
     batch = _int(env, "TPUJOB_BATCH", 16)
     seq = _int(env, "TPUJOB_SEQ", 1024)
     steps = _int(env, "TPUJOB_STEPS", 100)
@@ -60,14 +64,22 @@ def make_job(env: Optional[Mapping[str, str]] = None,
         if env.get(knob):
             cfg[key] = int(env[knob])
     experts = _int(env, "TPUJOB_MOE_EXPERTS", 0)
+    if experts and sp > 1:
+        raise NotImplementedError(
+            "MoE under a sequence split of %d ranks: expert capacity and "
+            "expert sharding over the mesh wait for ROADMAP A9" % sp)
     if experts:
         cfg.update(moe_experts=experts, moe_every=2)
     # stream tokens through the LM head (never materialise [B, S, V] fp32
     # logits); 0 restores the dense path
     ce_chunk = _int(env, "TPUJOB_CE_CHUNK", 1024)
 
-    def loss_fn(p, b):
-        return gpt.loss_fn(p, b, remat=True, attn_impl=attn_impl,
+    def loss_fn(p, b, mesh=None):
+        attn = attn_impl
+        if mesh is not None and sp > 1 and "sp" in mesh.shape:
+            attn = functools.partial(context.ring_attention, mesh=mesh,
+                                     axis="sp", causal=True)
+        return gpt.loss_fn(p, b, remat=True, attn_impl=attn,
                            ce_chunk=ce_chunk)
 
     return TrainJob(
@@ -78,6 +90,8 @@ def make_job(env: Optional[Mapping[str, str]] = None,
             weight_decay=0.1),
         make_batch=lambda gen, step: gpt.synthetic_batch(
             gen, batch, seq, cfg["vocab_size"]),
+        mesh_axes={"dp": -1, "sp": sp} if sp > 1 else None,
+        seq_axis="sp" if sp > 1 else None,
         grad_clip=1.0,
         total_steps=steps,
         steps_per_call=_int(env, "TPUJOB_STEPS_PER_CALL", 1),

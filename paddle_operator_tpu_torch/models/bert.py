@@ -104,13 +104,18 @@ def encode(params: Dict, input_ids: torch.Tensor,
            type_ids: Optional[torch.Tensor] = None,
            attention_mask: Optional[torch.Tensor] = None,
            dtype: torch.dtype = torch.bfloat16, remat: bool = False,
-           attn_impl: Any = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+           attn_impl: Any = "auto",
+           positions: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """input_ids ``[B, S]`` -> (hidden states ``[B, S, H]`` in ``dtype``,
-    the layers' MoE aux loss summed in fp32)."""
+    the layers' MoE aux loss summed in fp32). ``positions`` ``[S]``: the
+    tokens' positions (default ``arange(S)``; a block of a sequence split
+    over ranks passes its global positions)."""
     _, s = input_ids.shape
     x = nn.embedding(params["embed"]["tok"], input_ids, dtype)
-    pos = torch.arange(s, device=input_ids.device)[None, :]
-    x = x + nn.embedding(params["embed"]["pos"], pos, dtype)
+    if positions is None:
+        positions = torch.arange(s, device=input_ids.device)
+    x = x + nn.embedding(params["embed"]["pos"], positions[None, :], dtype)
     if type_ids is None:
         type_ids = torch.zeros_like(input_ids)
     x = x + nn.embedding(params["embed"]["type"], type_ids, dtype)

@@ -16,6 +16,16 @@ With ``moe_experts > 0`` every ``moe_every``-th FFN (layers ``li %
 moe_every == 0``) is a switch-MoE block, ``layers[i].moe.{router, wi,
 wo}`` (:mod:`..ops.moe`); ``encode`` and ``apply`` return the layers'
 load-balancing loss beside their output, as the reference's do.
+
+Under a sequence split (the train step's ``seq_axis``: :func:`..parallel.
+collectives.sequence_shards`) :func:`loss_fn` takes this rank's block of
+every sequence from a batch whose token axis is whole, and gives its part
+of the reference's loss on the global arrays: rope at global positions,
+the labels shifted across the block boundary (only the last block drops
+its final position), and the whole sequence's mask sum as denominator,
+so the blocks' losses and accuracies add up to the replica's. Attention
+across blocks is the caller's ``attn_impl`` (ring or Ulysses attention
+over the same axis).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import nn
 from ..ops.moe import moe_apply, moe_init
+from ..parallel import collectives
 
 F32 = torch.float32
 
@@ -127,6 +138,12 @@ def apply(params: Dict, input_ids: torch.Tensor,
     return nn.dense(params["lm_head"], x, dtype=F32), aux
 
 
+def block_positions(index: int, s_local: int,
+                    device: torch.device) -> torch.Tensor:
+    """Global token positions of block ``index`` of ``s_local`` tokens."""
+    return index * s_local + torch.arange(s_local, device=device)
+
+
 def loss_fn(params: Dict, batch: Dict, train: bool = True,
             dtype: torch.dtype = torch.bfloat16, remat: bool = False,
             attn_impl: Any = "auto", moe_aux_weight: float = 0.01,
@@ -137,28 +154,56 @@ def loss_fn(params: Dict, batch: Dict, train: bool = True,
     ``ce_chunk > 0`` streams the LM head through
     :func:`..ops.nn.chunked_lm_xent` (no ``[B, S, V]`` logits); 0 takes
     the dense fp32 head. Returns ``(loss, {"accuracy", "moe_aux"})``; the
-    loss includes ``moe_aux_weight * moe_aux``."""
+    loss includes ``moe_aux_weight * moe_aux``.
+
+    Under a sequence split of n blocks (``collectives.seq_block()``) the
+    batch's token axis is whole; this rank runs block i of the ids at
+    positions ``i S/n + arange(S/n)``, and its loss and accuracy are the
+    block's sums over the whole sequence's masked label count."""
     ids = batch["input_ids"]
     labels = ids[:, 1:].long()
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=F32, device=ids.device)
             if mask is None else mask[:, 1:].to(F32))
+    index, count = collectives.seq_block()
+    positions, denom = None, None
+    if count > 1:
+        if any("moe" in layer for layer in params["layers"]):
+            raise NotImplementedError(
+                "MoE under a sequence split of %d ranks: expert capacity "
+                "and expert sharding over the mesh wait for ROADMAP A9"
+                % count)
+        if ids.shape[1] % count:
+            raise ValueError("seq len %d must divide ring size %d"
+                             % (ids.shape[1], count))
+        s_local = ids.shape[1] // count
+        start = index * s_local
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+        positions = block_positions(index, s_local, ids.device)
+        ids = ids[:, start:start + s_local]
+        # the next block's first token labels this block's last one;
+        # the last block has one label fewer
+        labels = labels[:, start:start + s_local]
+        mask = mask[:, start:start + s_local]
+    n_labels = labels.shape[1]
 
     if ce_chunk:
         hidden, moe_aux = encode(params, ids, dtype=dtype, remat=remat,
-                                 attn_impl=attn_impl)
-        loss, acc = nn.chunked_lm_xent(params["lm_head"], hidden[:, :-1],
-                                       labels, mask=mask, chunk=ce_chunk,
-                                       dtype=dtype)
+                                 attn_impl=attn_impl, positions=positions)
+        loss, acc = nn.chunked_lm_xent(params["lm_head"],
+                                       hidden[:, :n_labels], labels,
+                                       mask=mask, chunk=ce_chunk,
+                                       dtype=dtype, denom=denom)
         loss = loss + moe_aux_weight * moe_aux
         return loss, {"accuracy": acc, "moe_aux": moe_aux}
 
     logits, moe_aux = apply(params, ids, dtype=dtype, remat=remat,
-                            attn_impl=attn_impl)
-    logits = logits[:, :-1]
+                            attn_impl=attn_impl, positions=positions)
+    logits = logits[:, :n_labels]
     logp = torch.log_softmax(logits, dim=-1)
     picked = logp.gather(-1, labels[..., None])[..., 0]
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = -torch.sum(picked * mask) / denom
     loss = loss + moe_aux_weight * moe_aux
     acc = torch.sum((logits.argmax(dim=-1) == labels).to(F32) * mask) / denom

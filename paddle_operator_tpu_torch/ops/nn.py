@@ -422,7 +422,8 @@ class _MatmulF32(torch.autograd.Function):
 def chunked_lm_xent(head_params: Params, hidden: torch.Tensor,
                     labels: torch.Tensor,
                     mask: Optional[torch.Tensor] = None, chunk: int = 1024,
-                    dtype: torch.dtype = torch.bfloat16
+                    dtype: torch.dtype = torch.bfloat16,
+                    denom: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy through a big-vocab LM head without materialising the
     ``[tokens, vocab]`` logits (the reference's ``chunked_lm_xent``).
@@ -433,7 +434,9 @@ def chunked_lm_xent(head_params: Params, hidden: torch.Tensor,
     its fp32 logits from ``(hidden chunk, kernel)``; a Python loop over
     the chunks is the reference's ``scan``. Logits are fp32 from
     ``dtype`` operands. Returns ``(mean loss, accuracy)`` fp32 over the
-    masked positions (``mask`` weighs label positions)."""
+    masked positions (``mask`` weighs label positions); ``denom``, if
+    given, replaces the mask's sum as the divisor (a sequence block's part
+    of the whole sequence's mean)."""
     d = hidden.shape[-1]
     flat_h = hidden.reshape(-1, d)
     flat_l = labels.reshape(-1).long()
@@ -468,5 +471,6 @@ def chunked_lm_xent(head_params: Params, hidden: torch.Tensor,
                              use_reentrant=False, preserve_rng_state=False)
         loss_sum = loss_sum + ls
         acc_sum = acc_sum + acc
-    denom = torch.clamp(torch.sum(flat_m), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(flat_m), min=1.0)
     return loss_sum / denom, acc_sum / denom

@@ -13,7 +13,20 @@ JAX package's dp-sharded train step, written out for
   cotangents, for sync BatchNorm; :func:`sync_batch` sets the group that
   :func:`..ops.nn.batchnorm` reduces over while the loss runs;
 * :func:`max_int`, :func:`min_int` and :func:`barrier` for the runner
-  and the checkpoint writer (the identity for a group of one).
+  and the checkpoint writer (the identity for a group of one);
+* the collectives of sequence parallelism, what the reference gets from
+  ``lax.ppermute`` and ``lax.all_to_all``, differentiable: :func:`ring_shift`
+  (one hop around the ring; its backward is the hop the other way) and
+  :func:`all_to_all` (the ``tiled=True`` form; its backward is the
+  inverse all-to-all); :func:`sequence_shards` sets the group a loss's
+  sequence is split over while the loss runs.
+
+Under a sequence axis each rank's loss and gradients are parts of its
+replica's (``shards`` ranks hold the blocks of one sequence), so
+:func:`mean_grads` and :func:`mean_metrics` take ``shards``: the mean over
+the world times ``shards`` is the sum over each replica's blocks averaged
+over the replicas, in one collective whose result is the same on every
+rank.
 
 A mean over NCCL is one ``ReduceOp.AVG`` all-reduce (NCCL scales by
 ``1/size`` before it sums, in the kernel); gloo has no AVG, so there it
@@ -21,12 +34,20 @@ is a SUM and a division. For a world of 1, 2 or 4 both give the same
 bits: the scale is a power of two. Every function takes the group of a
 :class:`.mesh.Mesh`; ``None`` (one process, no group) is the identity.
 Every rank must call them in the same order.
+
+Transport of the sequence collectives: NCCL moves CUDA tensors with
+``batch_isend_irecv`` and ``all_to_all_single``. gloo's point-to-point
+and all-to-all read host memory, so on gloo a CUDA tensor is staged
+through a host copy (:func:`_gloo_staged`): that is gloo's transport,
+used only for a gloo group, never on NCCL. ``transfers`` counts the
+ring's hops and all-to-alls with their bytes and host seconds.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -44,8 +65,9 @@ def _on_nccl(group: Group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
-def mean_(t: torch.Tensor, group: Group) -> torch.Tensor:
-    """Average ``t`` over ``group`` in place; returns ``t``."""
+def mean_(t: torch.Tensor, group: Group, shards: int = 1) -> torch.Tensor:
+    """Average ``t`` over ``group`` in place, times ``shards``; returns
+    ``t``."""
     if group is None:
         return t
     if _on_nccl(group):
@@ -53,6 +75,8 @@ def mean_(t: torch.Tensor, group: Group) -> torch.Tensor:
     else:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         t.div_(dist.get_world_size(group))
+    if shards != 1:
+        t.mul_(shards)
     return t
 
 
@@ -77,18 +101,20 @@ def bucket_plan(tensors: Sequence[torch.Tensor],
     return buckets
 
 
-def mean_grads(grads: Any, group: Group, cap: int = BUCKET_BYTES) -> Any:
-    """The gradient tree averaged over ``group``: each bucket of
-    :func:`bucket_plan` is concatenated into one flat tensor, averaged
-    in one collective, and handed back as views of it. ``None`` leaves
-    stay ``None``."""
+def mean_grads(grads: Any, group: Group, cap: int = BUCKET_BYTES,
+               shards: int = 1) -> Any:
+    """The gradient tree averaged over ``group`` (times ``shards``, the
+    sequence shards of one replica): each bucket of :func:`bucket_plan`
+    is concatenated into one flat tensor, reduced in one collective, and
+    handed back as views of it. ``None`` leaves stay ``None``."""
     if group is None:
         return grads
     out = bridge.flatten(grads)
     names = [k for k, g in out.items() if g is not None]
     tensors = [out[k] for k in names]
     for idx in bucket_plan(tensors, cap):
-        flat = mean_(torch.cat([tensors[i].reshape(-1) for i in idx]), group)
+        flat = mean_(torch.cat([tensors[i].reshape(-1) for i in idx]), group,
+                     shards)
         pieces = flat.split([tensors[i].numel() for i in idx])
         for i, piece in zip(idx, pieces):
             out[names[i]] = piece.view(tensors[i].shape)
@@ -112,9 +138,11 @@ def broadcast_(tree: Any, group: Group, src: int = 0,
     return tree
 
 
-def mean_metrics(metrics: Dict[str, Any], group: Group) -> Dict[str, Any]:
+def mean_metrics(metrics: Dict[str, Any], group: Group,
+                 shards: int = 1) -> Dict[str, Any]:
     """Average every floating tensor of a metrics dict over ``group`` in
-    one collective (in fp32); other entries pass through."""
+    one collective (in fp32; times ``shards``, as :func:`mean_grads`);
+    other entries pass through."""
     if group is None:
         return metrics
     keys = [k for k, v in metrics.items()
@@ -122,7 +150,7 @@ def mean_metrics(metrics: Dict[str, Any], group: Group) -> Dict[str, Any]:
     if not keys:
         return metrics
     flat = mean_(torch.cat([metrics[k].detach().float().reshape(-1)
-                            for k in keys]), group)
+                            for k in keys]), group, shards)
     out = dict(metrics)
     for k, piece in zip(keys, flat.split([metrics[k].numel()
                                           for k in keys])):
@@ -217,3 +245,146 @@ def barrier(group: Group) -> None:
     """Every rank of ``group`` reaches this point before any leaves it."""
     if not _alone(group):
         dist.barrier(group=group)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism
+# ---------------------------------------------------------------------------
+
+#: the sequence collectives' traffic since the last reset: ring hops and
+#: all-to-alls, their bytes (sent by this rank) and host seconds
+transfers = {"ring_shift": 0, "all_to_all": 0, "bytes": 0, "seconds": 0.0}
+
+
+def _gloo_staged(group: Group, x: torch.Tensor) -> bool:
+    """gloo's transport: a CUDA tensor crosses a gloo group through a
+    host copy (gloo's point-to-point and all-to-all read host memory)."""
+    return x.device.type == "cuda" and not _on_nccl(group)
+
+
+def _exchange(group: Group, send: torch.Tensor, run) -> torch.Tensor:
+    """``run(host_send, host_recv)`` on ``send`` (contiguous) and a buffer
+    of its shape, staged through the host on gloo; returns the received
+    tensor on ``send``'s device, and counts the bytes and seconds."""
+    t0 = time.perf_counter()
+    staged = _gloo_staged(group, send)
+    out = send.to("cpu") if staged else send
+    recv = torch.empty_like(out)
+    run(out, recv)
+    if staged:
+        recv = recv.to(send.device)
+    transfers["bytes"] += send.numel() * send.element_size()
+    transfers["seconds"] += time.perf_counter() - t0
+    return recv
+
+
+def _shift(x: torch.Tensor, group: Group, step: int) -> torch.Tensor:
+    """``x`` sent to the rank ``step`` places on around ``group``'s ring,
+    and the tensor of the rank ``step`` places back received."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    dst = dist.get_global_rank(group, (r + step) % n)
+    src = dist.get_global_rank(group, (r - step) % n)
+
+    def run(send: torch.Tensor, recv: torch.Tensor) -> None:
+        ops = [dist.P2POp(dist.isend, send, dst, group),
+               dist.P2POp(dist.irecv, recv, src, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+    transfers["ring_shift"] += 1
+    return _exchange(group, x.detach().contiguous(), run)
+
+
+def _all_to_all(x: torch.Tensor, group: Group, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)``: ``x`` cut into ``n`` equal
+    chunks along ``split_axis``, chunk j sent to rank j, and the chunks
+    received from ranks 0..n-1 joined along ``concat_axis``."""
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError("all_to_all: axis %d of %r does not split into %d"
+                         % (split_axis, tuple(x.shape), n))
+    send = torch.stack(x.detach().chunk(n, dim=split_axis))
+
+    def run(send: torch.Tensor, recv: torch.Tensor) -> None:
+        dist.all_to_all_single(recv, send, group=group)
+
+    transfers["all_to_all"] += 1
+    recv = _exchange(group, send, run)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _RingShift(torch.autograd.Function):
+    """One hop forward around the ring; the backward sends the cotangent
+    one hop back (``ppermute`` transposes itself)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Group) -> torch.Tensor:
+        ctx.group = group
+        return _shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _shift(grad, ctx.group, -1), None
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all`; the backward is the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Group, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+        ctx.args = (group, split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        group, split_axis, concat_axis = ctx.args
+        return _all_to_all(grad, group, concat_axis, split_axis), None, \
+            None, None
+
+
+def ring_shift(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` of group rank i sent to rank (i + 1) mod n; returns the
+    tensor of rank (i - 1) mod n. Differentiable. The identity for a
+    group of one."""
+    if _alone(group):
+        return x
+    return _RingShift.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group: Group, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """The reference's ``lax.all_to_all(x, axis, split_axis, concat_axis,
+    tiled=True)`` over ``group``. Differentiable. The identity for a
+    group of one."""
+    if _alone(group):
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+_SEQ_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "seq_group", default=None)
+
+
+@contextlib.contextmanager
+def sequence_shards(group: Group):
+    """While the block runs, the sequence is split over ``group``: the
+    train step sets it around the loss under a sequence axis, so that the
+    loss takes this rank's block of each sequence (:func:`seq_block`).
+    Read it in the forward, outside any recomputed region."""
+    token = _SEQ_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _SEQ_GROUP.reset(token)
+
+
+def seq_block() -> tuple:
+    """``(index, count)``: this rank's block of the sequence and the
+    number of blocks, inside :func:`sequence_shards`; ``(0, 1)`` without
+    a sequence split."""
+    group = _SEQ_GROUP.get()
+    if _alone(group):
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)

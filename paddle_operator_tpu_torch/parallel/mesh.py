@@ -2,16 +2,20 @@
 ``make_mesh`` and ``mesh_from_env``, over processes.
 
 The port runs one process per card, so a mesh axis spans processes of
-the ``torch.distributed`` world. Only ``dp`` is ported: an axis of any
-other name with a size above 1 raises (ROADMAP A9 holds tp, sp, fsdp, ep
+the ``torch.distributed`` world. ``dp`` and ``sp`` are ported: an axis of
+any other name with a size above 1 raises (ROADMAP A9 holds tp, fsdp, ep
 and pipeline meshes).
 
-A :class:`Mesh` is backed by the default (world) process group, not by
-``torch.distributed.device_mesh``: a dp-only mesh over one card a
-process is the world group itself, and the train step, sync BatchNorm
-and the checkpoint barriers need only its rank, size and collectives
-(:mod:`.collectives`), on NCCL and on gloo alike. A process that never
-joined a group (one worker) gets a mesh of one with no group, whose
+Ranks are laid out as the reference lays out devices: row-major over the
+axes in dict order, so with ``{"dp": 2, "sp": 2}`` (dp outermost, sp
+innermost) rank = dp_index * 2 + sp_index. A :class:`Mesh` holds the
+world group (``group``: the gradient and metric reductions, sync
+BatchNorm, the checkpoint) and, for every axis, the process group of the
+ranks that differ from this one only along it (:meth:`Mesh.axis_group`):
+the ring and the all-to-alls of sequence parallelism run on the sp
+group, the batch split takes the dp coordinate. An axis that spans the
+whole world uses the world group itself, one of size 1 none. A process
+that never joined a group (one worker) gets a mesh with no group, whose
 collectives are the identity.
 
 The runner's control collectives (the agreed drain poll, the checkpoint
@@ -22,27 +26,32 @@ every step boundary reads a host value without waiting for the card.
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch.distributed as dist
 
 #: the mesh axes the port has ported
-PORTED_AXES = ("dp",)
+PORTED_AXES = ("dp", "sp")
 
 
 @dataclass(frozen=True)
 class Mesh:
     """An ordered ``{axis: size}`` mesh over the world's processes.
     ``shape`` is a plain dict (the runner records it in ``mesh_history``);
-    ``group`` is the process group (``None``: one process, no group) and
-    ``control`` the group of host-side control collectives."""
+    ``group`` is the world's process group (``None``: one process, no
+    group), ``control`` the group of host-side control collectives and
+    ``groups`` this rank's group along each axis (``None`` for an axis of
+    size 1, or without a process group)."""
 
     shape: Dict[str, int]
     group: Optional[dist.ProcessGroup] = None
     control: Optional[dist.ProcessGroup] = None
+    groups: Dict[str, Optional[dist.ProcessGroup]] = field(
+        default_factory=dict)
 
     @property
     def size(self) -> int:
@@ -52,10 +61,58 @@ class Mesh:
     def rank(self) -> int:
         return dist.get_rank(self.group) if self.group is not None else 0
 
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along each axis (row-major, dict order)."""
+        out, rest = {}, self.rank
+        for name, size in reversed(list(self.shape.items())):
+            out[name], rest = rest % size, rest // size
+        return {name: out[name] for name in self.shape}
+
+    def axis_size(self, name: str) -> int:
+        """The size of axis ``name`` (1 for an axis the mesh lacks)."""
+        return self.shape.get(name, 1)
+
+    def axis_rank(self, name: str) -> int:
+        """This rank's index along axis ``name`` (0 if the mesh lacks
+        it)."""
+        return self.coords().get(name, 0)
+
+    def axis_group(self, name: str) -> Optional[dist.ProcessGroup]:
+        """The process group of the ranks that differ from this one only
+        along ``name`` (``None`` for an axis of size 1)."""
+        return self.groups.get(name)
+
 
 def world_size() -> int:
     """Processes in the ``torch.distributed`` world (1 without a group)."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _axis_groups(axes: Dict[str, int], rank: int, world_group
+                 ) -> Dict[str, Optional[dist.ProcessGroup]]:
+    """This rank's group along each axis. ``new_group`` is collective
+    over the world: every rank creates every subgroup, in one order (axis
+    by axis, then by the other axes' coordinates), and keeps the one it
+    belongs to."""
+    names, sizes = list(axes), list(axes.values())
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+    out: Dict[str, Optional[dist.ProcessGroup]] = {}
+    for i, name in enumerate(names):
+        if sizes[i] == 1:
+            out[name] = None
+            continue
+        if sizes[i] == math.prod(sizes):
+            out[name] = world_group
+            continue
+        others = [range(s) if j != i else range(1)
+                  for j, s in enumerate(sizes)]
+        for base in itertools.product(*others):
+            start = sum(c * st for c, st in zip(base, strides))
+            ranks = [start + k * strides[i] for k in range(sizes[i])]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                out[name] = group
+    return out
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None,
@@ -65,7 +122,8 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
 
     Sizes of -1 are inferred (at most one). Default: every process on
     ``dp``. The sizes must cover the world exactly, as the reference's
-    must cover its devices."""
+    must cover its devices. In a process group every rank must call this
+    with the same axes: it creates the axes' subgroups."""
     n = world_size() if world is None else world
     if not axes:
         axes = {"dp": n}
@@ -87,8 +145,8 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     for name, size in axes.items():
         if name not in PORTED_AXES and size > 1:
             raise NotImplementedError(
-                "mesh axis %r of size %d: the port shards over dp only; tp, "
-                "sp, fsdp, ep and pipeline meshes wait for ROADMAP A9"
+                "mesh axis %r of size %d: the port shards over dp and sp "
+                "only; tp, fsdp, ep and pipeline meshes wait for ROADMAP A9"
                 % (name, size))
     if not dist.is_initialized():
         return Mesh(axes)
@@ -96,12 +154,14 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     control = group
     if dist.get_backend(group) == "nccl" and n > 1:
         control = dist.new_group(backend="gloo")
-    return Mesh(axes, group, control)
+    return Mesh(axes, group, control,
+                _axis_groups(axes, dist.get_rank(group), group))
 
 
 def mesh_from_env(world: Optional[int] = None) -> Mesh:
-    """Mesh shape from ``TPUJOB_MESH`` (e.g. ``dp=2``), as far as dp goes;
-    a multislice ``TPUJOB_DCN_MESH`` is not ported and raises."""
+    """Mesh shape from ``TPUJOB_MESH`` (e.g. ``dp=2,sp=2``), over the
+    ported axes; a multislice ``TPUJOB_DCN_MESH`` is not ported and
+    raises."""
     def parse(s: str) -> Dict[str, int]:
         axes: Dict[str, int] = {}
         for part in s.split(","):

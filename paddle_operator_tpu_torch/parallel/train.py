@@ -18,8 +18,16 @@ microbatch and before clipping, so the clip sees the global gradient's
 norm; the loss and metrics are averaged so every rank reports the
 global batch's. The state is broadcast from rank 0 at build, and stays
 identical on every rank from then on. Parameters and optimizer state are
-replicated: sharding rules over an axis of the mesh, and ``seq_axis``,
-raise (ROADMAP A9).
+replicated: sharding rules over an axis of the mesh raise (ROADMAP A9).
+
+Under ``seq_axis`` (sequence parallelism over a ``dp`` x ``sp`` mesh) the
+batch is split over the batch axis only: a rank's block is its dp block
+with the token axis whole, and the sp group reaches the loss through
+:func:`.collectives.sequence_shards`, so that the loss takes this rank's
+block of each sequence and returns its part of the replica's loss. The
+gradients, the loss and the metrics are then summed over sp (the blocks
+of one replica) and averaged over dp, in one collective over the world
+(:func:`_reduce_grads`), so every rank gets the same bits.
 """
 
 from __future__ import annotations
@@ -73,14 +81,15 @@ def batch_axis_of(accum_steps: int = 1, steps_per_call: int = 1) -> int:
 
 def _check_mesh(mesh: Mesh, rules: Any, batch_axis: str,
                 seq_axis: Optional[str]) -> None:
-    """Refuse what the dp-only port cannot shard: a sequence axis, a
-    batch axis the mesh lacks, and rules that name an axis of the mesh.
-    Rules whose axes are all missing from the mesh mean "replicated", as
-    the reference's rule tables do there."""
-    if seq_axis is not None:
+    """Refuse what the port cannot shard: a sequence axis or a batch axis
+    the mesh lacks, and rules that name an axis of the mesh. Rules whose
+    axes are all missing from the mesh mean "replicated", as the
+    reference's rule tables do there."""
+    if seq_axis is not None and seq_axis not in mesh.shape:
         raise NotImplementedError(
-            "seq_axis=%r: sequence parallelism is not ported (ROADMAP A9)"
-            % seq_axis)
+            "seq_axis=%r is not an axis of the mesh %s: sequence "
+            "parallelism splits the sequence over an sp axis of the mesh "
+            "(ROADMAP A9 holds the others)" % (seq_axis, mesh.shape))
     if batch_axis not in mesh.shape:
         raise ValueError("batch axis %r is not an axis of the mesh %s"
                          % (batch_axis, mesh.shape))
@@ -93,6 +102,14 @@ def _check_mesh(mesh: Mesh, rules: Any, batch_axis: str,
                     "sharding rule %r shards over mesh axis %r; the port "
                     "replicates parameters (ROADMAP A9)" % (pattern,
                                                            named[0]))
+
+
+def _reduce_grads(grads: Any, mesh: Optional[Mesh], shards: int) -> Any:
+    """The gradients summed over each replica's ``shards`` sequence
+    blocks and averaged over the replicas: one mean over the world, times
+    ``shards``."""
+    return collectives.mean_grads(
+        grads, mesh.group if mesh is not None else None, shards=shards)
 
 
 def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
@@ -117,22 +134,32 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
       extra leading ``[K]`` axis are sliced one step at a time; leaves of
       the sample's shape are reused every step. Metrics come back stacked
       ``[K]``.
-    * ``mesh``: a dp :class:`.mesh.Mesh`. ``host_local_batches=False``:
-      ``step_fn`` takes the GLOBAL batch, the same on every rank, and
-      each rank trains on its contiguous block of the batch axis
-      (:func:`batch_axis_of`); ``True``: ``step_fn`` takes this rank's
-      block as it is. ``rules`` naming only axes the mesh lacks are
-      accepted (replicated); other rules and ``seq_axis`` raise.
+    * ``mesh``: a dp or dp x sp :class:`.mesh.Mesh`.
+      ``host_local_batches=False``: ``step_fn`` takes the GLOBAL batch,
+      the same on every rank, and each rank trains on its contiguous
+      block of the batch axis (:func:`batch_axis_of`), cut by its dp
+      index; ``True``: ``step_fn`` takes this rank's block as it is (its
+      dp block, the token axis whole under ``seq_axis``). ``rules``
+      naming only axes the mesh lacks are accepted (replicated); other
+      rules raise.
+    * ``seq_axis``: the mesh axis the sequence is split over (``"sp"``):
+      the loss runs inside :func:`.collectives.sequence_shards` of that
+      axis's group and returns this rank's part of the replica's loss
+      (``models.gpt.loss_fn`` does); the gradients, loss and metrics are
+      summed over it.
     """
-    group = None
+    group, seq_group, shards = None, None, 1
     if mesh is not None:
         _check_mesh(mesh, rules, batch_axis, seq_axis)
         group = mesh.group
+        if seq_axis is not None:
+            seq_group = mesh.axis_group(seq_axis)
+            shards = mesh.axis_size(seq_axis)
     # the per-step batch's axis that the mesh splits (the [K] axis is
     # sliced off before step() sees the batch)
     split_axis = batch_axis_of(accum_steps)
     take_block = mesh is not None and not host_local_batches \
-        and mesh.size > 1
+        and mesh.axis_size(batch_axis) > 1
 
     def grads_of(p: Any, batch: Any):
         if accum_steps == 1:
@@ -162,11 +189,13 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
 
     def step(state: Dict, batch: Any):
         if take_block:
-            batch = process_shard(batch, mesh.rank, mesh.size,
+            batch = process_shard(batch, mesh.axis_rank(batch_axis),
+                                  mesh.axis_size(batch_axis),
                                   axis=split_axis)
-        with collectives.sync_batch(group):
+        with collectives.sync_batch(group), \
+                collectives.sequence_shards(seq_group):
             (loss, aux), grads = grads_of(state["params"], batch)
-        grads = collectives.mean_grads(grads, group)
+        grads = _reduce_grads(grads, mesh, shards)
         gnorm = None
         if grad_clip:
             grads, gnorm = clip_by_global_norm(grads, grad_clip)
@@ -178,7 +207,7 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
         metrics = {"loss": loss}
         if isinstance(aux, dict):
             metrics.update(_detach(aux))
-        metrics = collectives.mean_metrics(metrics, group)
+        metrics = collectives.mean_metrics(metrics, group, shards)
         if gnorm is not None:
             metrics["grad_norm"] = gnorm
         return state, metrics

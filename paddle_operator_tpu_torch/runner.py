@@ -3,13 +3,16 @@ loop of ``paddle_operator_tpu/runner.py``, on one device or data-parallel
 over the processes of a ``torch.distributed`` world (one card each).
 
 It joins the world the operator's env describes
-(:func:`.launch.initialize_distributed`), builds a ``dp`` mesh when
-``mesh_axes`` is set or the world has more than one process
-(:mod:`.parallel.mesh`), builds the train step (:mod:`.parallel.train`),
+(:func:`.launch.initialize_distributed`), builds a mesh when
+``mesh_axes`` is set (dp, or dp x sp with ``seq_axis``) or the world has
+more than one process (all on dp) (:mod:`.parallel.mesh`), hands it to a
+``loss_fn`` that declares a ``mesh`` keyword (the hook ring and Ulysses
+attention plug into), builds the train step (:mod:`.parallel.train`),
 resumes from the newest valid checkpoint (:func:`.utils.checkpoint.
 restore_latest`, agreed between the ranks), feeds prestaged batches or
 ``[K, ...]`` windows from a background producer (:class:`.data.
-ShardedLoader`; each rank draws the global batch and keeps its block),
+ShardedLoader`; each rank draws the global batch and keeps its dp
+block, the token axis whole under a sequence axis),
 logs deferred metrics every ``log_every`` steps, saves every
 ``checkpoint_every`` steps (v2 on a background thread from worker 0 in a
 world of one; the sharded format from every rank, synchronously, in a
@@ -25,6 +28,7 @@ detection and the hardware-efficiency plane.
 from __future__ import annotations
 
 import functools
+import inspect
 import logging
 import os
 import threading
@@ -124,12 +128,16 @@ class TrainJob:
     seed: int = 0
     # where to train: None means CUDA (and raises without a card)
     device: DeviceLike = None
-    # {axis: size} of the mesh, dp only (e.g. {"dp": -1}); None: dp over
-    # every process of the world, or no mesh in a world of one
+    # {axis: size} of the mesh, over dp and sp (e.g. {"dp": -1, "sp": 2});
+    # None: dp over every process of the world, or no mesh in a world of
+    # one
     mesh_axes: Optional[Dict[str, int]] = None
+    # the mesh axis the sequence is split over (e.g. "sp"): the loss takes
+    # this rank's block of each sequence (parallel.train)
+    seq_axis: Optional[str] = None
     # input contract under dp: False = make_batch returns the GLOBAL
-    # batch, the same on every rank, and each rank keeps its block; True
-    # = make_batch returns only this rank's block
+    # batch, the same on every rank, and each rank keeps its dp block;
+    # True = make_batch returns only this rank's dp block
     host_local_batches: bool = False
 
 
@@ -200,6 +208,15 @@ def _run(job: TrainJob, cfg: LaunchConfig) -> Dict[str, Any]:
     return result
 
 
+def bind_mesh(loss_fn: Callable, mesh: Optional[Mesh]) -> Callable:
+    """``loss_fn`` with ``mesh=mesh`` bound when its signature declares a
+    ``mesh`` keyword (the hook ring and Ulysses attention plug into), as
+    the reference's runner gives the live mesh; else ``loss_fn``."""
+    if "mesh" in inspect.signature(loss_fn).parameters:
+        return functools.partial(loss_fn, mesh=mesh)
+    return loss_fn
+
+
 def _train(job: TrainJob, dev: torch.device, mesh: Optional[Mesh],
            result: Dict[str, Any], save: Callable,
            drain_agreed: Callable[[], bool],
@@ -208,11 +225,12 @@ def _train(job: TrainJob, dev: torch.device, mesh: Optional[Mesh],
     K = max(1, job.steps_per_call)
     sample = job.make_batch(step_generator(job.seed, 0, dev), 0)
     multi = mesh is not None and mesh.size > 1
+    loss_fn = bind_mesh(job.loss_fn, mesh)
     # the loader hands each rank its block, so the step takes it as is
     build = dict(merge_stats=job.merge_stats, grad_clip=job.grad_clip,
                  accum_steps=job.accum_steps, mesh=mesh,
-                 host_local_batches=True)
-    step_fn, state = build_train_step(job.loss_fn, job.optimizer, params,
+                 seq_axis=job.seq_axis, host_local_batches=True)
+    step_fn, state = build_train_step(loss_fn, job.optimizer, params,
                                       sample, steps_per_call=K, **build)
     del params
     single_fn = None   # for a tail shorter than K, built on first use
@@ -247,8 +265,8 @@ def _train(job: TrainJob, dev: torch.device, mesh: Optional[Mesh],
     shard = None
     if multi and not job.host_local_batches:
         shard = functools.partial(process_shard,
-                                  process_index=mesh.rank,
-                                  process_count=mesh.size,
+                                  process_index=mesh.axis_rank("dp"),
+                                  process_count=mesh.axis_size("dp"),
                                   axis=batch_axis_of(job.accum_steps))
     loader = ShardedLoader(
         job_window_source(job.make_batch, job.seed, start_step,
@@ -282,7 +300,7 @@ def _train(job: TrainJob, dev: torch.device, mesh: Optional[Mesh],
             else:
                 if single_fn is None:
                     single_fn, _ = build_train_step(
-                        job.loss_fn, job.optimizer, state["params"], sample,
+                        loss_fn, job.optimizer, state["params"], sample,
                         init_state=False, **build)
                 for _ in range(k_here):
                     state, metrics = dispatch(single_fn, state)
