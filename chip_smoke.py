@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the seven ported paths:
+path. Then it drives the eight ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -41,6 +41,12 @@ path. Then it drives the seven ported paths:
   alone against one process's flash attention, GPT-2 small with
   ``TPUJOB_SP=4`` over 4096-token sequences and a dp2 x sp2 run against
   one process, with three planted faults; gates in ``phase_train_sp``.
+* train_ctr: the CTR models at full width (26 slots x 10,000 ids, batch
+  512): wide&deep and DeepFM through their examples' jobs and
+  run_training, and parameter-server mode, 2 pservers (the example, no
+  card visible) and 2 trainer processes on the card, dense and sparse,
+  each world held bitwise against its replay, with two planted faults;
+  gates in ``phase_train_ctr``. It launches no kernel of the port.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -50,6 +56,7 @@ of four or more cards, phase train_sp runs over NCCL, one card a worker.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -65,9 +72,12 @@ import time
 import numpy as np
 import torch
 
-from paddle_operator_tpu_torch import bridge, dp_check, testing
-from paddle_operator_tpu_torch.examples import train_bert, train_gpt
-from paddle_operator_tpu_torch.models import bert, gpt, resnet
+from paddle_operator_tpu_torch import bridge, dp_check, ps, ps_check, \
+    testing
+from paddle_operator_tpu_torch.examples import train_bert, train_deepfm, \
+    train_gpt, train_wide_deep
+from paddle_operator_tpu_torch.models import bert, deepfm, gpt, resnet, \
+    wide_deep
 from paddle_operator_tpu_torch.ops import _kernels, attention, moe, optim
 from paddle_operator_tpu_torch.parallel import build_train_step, collectives
 from paddle_operator_tpu_torch.parallel.mesh import make_mesh
@@ -122,6 +132,9 @@ MOE_EXPERTS, MOE_STEPS, MOE_SAVE_AT = 8, 10, 5
 #: 8 experts on every second layer, batch 16 x 512)
 BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_FIXED_STEPS = 64, 512, 5, 6
 BERT_MOE_BATCH, BERT_MOE_STEPS = 16, 4
+#: the train_ctr phase: the CTR examples' batch at DEFAULT_CONFIG; 20
+#: collective steps and 10 PS rounds (the examples' default is 100)
+CTR_BATCH, CTR_STEPS, CTR_ROUNDS = 512, 20, 10
 
 
 def emit(obj) -> None:
@@ -2872,6 +2885,325 @@ def phase_train_sp(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_ctr: the CTR models, collective and parameter-server mode
+# ---------------------------------------------------------------------------
+
+#: step-0 loss and gradients on the card against the port on the CPU, in
+#: fp32 with TF32 off, each leaf relative to its largest magnitude
+CTR_GRAD_RTOL = 1e-5
+#: a straggling trainer's delay before each sparse push (the stale_rows
+#: fault's trigger, and its sound control)
+CTR_STRAGGLE_S = 0.3
+CTR_FAULT_ROUNDS = 4
+CTR_MODELS = (("wide_deep", train_wide_deep, wide_deep),
+              ("deepfm", train_deepfm, deepfm))
+
+
+def _ctr_env() -> dict:
+    return {"TPUJOB_BATCH": str(CTR_BATCH), "TPUJOB_STEPS": str(CTR_STEPS)}
+
+
+def _ctr_grad_check(model) -> dict:
+    """Step 0's fp32 loss and gradients of ``model`` at DEFAULT_CONFIG on
+    the card and on the CPU, from the same parameters and batch."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = model.init(gen)
+    batch = model.synthetic_batch(gen, CTR_BATCH)
+    out = {}
+    for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+        p = bridge.tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, gvec, _ = ps.loss_and_grads(
+            lambda q, x: model.loss_fn(q, x, dtype=torch.float32), p, b)
+        out[where] = (float(loss), gvec)
+    names, shapes = zip(*[(k, t.numel()) for k, t in
+                          bridge.flatten(params).items()])
+    worst, leaf, off = 0.0, "", 0
+    for name, n in zip(names, shapes):
+        want = out["cpu"][1][off:off + n]
+        got = out["card"][1][off:off + n]
+        off += n
+        rel = float(np.max(np.abs(got - want))) / max(
+            float(np.max(np.abs(want))), 1e-30)
+        if rel >= worst:
+            worst, leaf = rel, name
+    return {"loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
+            "loss_rel_diff": abs(out["card"][0] - out["cpu"][0])
+            / abs(out["cpu"][0]),
+            "max_rel_diff": worst, "leaf": leaf, "tolerance": CTR_GRAD_RTOL}
+
+
+def _ctr_collective(name: str, example, model, tmp: str) -> dict:
+    """``example.make_job()`` through run_training: CTR_STEPS steps with
+    checkpoints every 10, a resume from step 10, CTR_STEPS on one fixed
+    batch and a profiled window (deterministic algorithms on: the
+    embedding's index backward is atomic otherwise)."""
+    dirs = {k: os.path.join(tmp, name + "_" + k) for k in "ac"}
+    grad = _ctr_grad_check(model)
+    with _deterministic():
+        rec_a, out_a, wall_a = _recorded_run(example.make_job(_ctr_env()),
+                                             dirs["a"])
+        os.makedirs(dirs["c"])
+        shutil.copytree(os.path.join(dirs["a"], "step_%012d" % 10),
+                        os.path.join(dirs["c"], "step_%012d" % 10))
+        rec_c, out_c, _ = _recorded_run(example.make_job(_ctr_env()),
+                                        dirs["c"])
+        fixed = model.synthetic_batch(
+            torch.Generator(device=DEVICE).manual_seed(1), CTR_BATCH)
+        rec_f, _, _ = _recorded_run(example.make_job(_ctr_env()), "",
+                                    make_batch=lambda gen, step: fixed)
+        job = example.make_job(_ctr_env())
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        profile = _step_profile(job, job.init_params(gen), fixed, warm=2,
+                                steps=5)
+    la, lc, lf = (r.host_losses() for r in (rec_a, rec_c, rec_f))
+    step_ms = rec_a.forward_gaps_ms(2, 9)
+    median_ms = statistics.median(step_ms)
+    return {"config": {"model": name + " DEFAULT_CONFIG",
+                       "batch": CTR_BATCH, "steps": CTR_STEPS,
+                       "compute": "bf16", "params": "fp32",
+                       "optimizer": "adamw(1e-3)",
+                       "deterministic_algorithms": True},
+            "grad_check_step_0": grad, "losses": la,
+            "resumed_from_10": lc, "fixed_batch_losses": lf,
+            "resume_steps": out_c.get("resume_steps"),
+            "max_abs_loss_diff_resumed": max(abs(x - y) for x, y in
+                                             zip(la[10:], lc)),
+            "step_ms": step_ms, "step_ms_median": median_ms,
+            "wall_s": wall_a, "profile": profile,
+            "idle_share": 1.0 - profile["device_busy_ms_per_step"]
+            / median_ms}
+
+
+def _ctr_collective_problems(name: str, r: dict) -> list:
+    problems = []
+    g = r["grad_check_step_0"]
+    if not (g["max_rel_diff"] <= CTR_GRAD_RTOL
+            and g["loss_rel_diff"] <= CTR_GRAD_RTOL):
+        problems.append("%s: step 0 on the card parts from the CPU by %g "
+                        "(loss %g) at %s > %g" % (
+                            name, g["max_rel_diff"], g["loss_rel_diff"],
+                            g["leaf"], CTR_GRAD_RTOL))
+    la, lc, lf = r["losses"], r["resumed_from_10"], r["fixed_batch_losses"]
+    if not all(np.isfinite(x) for x in la + lc + lf):
+        problems.append("%s: a loss is not finite" % name)
+    if len(la) != CTR_STEPS or len(lc) != CTR_STEPS - 10:
+        problems.append("%s: runs did not take their steps" % name)
+    if r["resume_steps"] != [10] or r["max_abs_loss_diff_resumed"] != 0.0:
+        problems.append("%s: the resume from %r parts from the run by %g "
+                        "(stated: bitwise)" % (
+                            name, r["resume_steps"],
+                            r["max_abs_loss_diff_resumed"]))
+    if not lf[-1] < lf[0]:
+        problems.append("%s: %d steps on one batch did not lower the loss "
+                        "(%g -> %g)" % (name, CTR_STEPS, lf[0], lf[-1]))
+    return problems
+
+
+#: the PS worlds: (b) dense wide&deep, and its twin on one fixed batch for
+#: the loss gate; (c) sparse wide&deep and DeepFM; (d) the planted faults
+#: and the straggler control
+#: (the faults and the control at CTR_FAULT_ROUNDS rounds: a fault shows
+#: from its second round on)
+def _ctr_scenarios() -> list:
+    env = {"TPUJOB_BATCH": str(CTR_BATCH), "TPUJOB_STEPS": str(CTR_ROUNDS),
+           "TPUJOB_LR": "0.1"}
+    sparse = dict(env, TPUJOB_SPARSE="1")
+    short = {"TPUJOB_STEPS": str(CTR_FAULT_ROUNDS)}
+    return [
+        dict(name="dense_wide_deep", model="wide_deep", env=env),
+        dict(name="dense_wide_deep_fixed", model="wide_deep", env=env,
+             fixed_batch=True, loss_gate=True),
+        dict(name="sparse_wide_deep", model="wide_deep", env=sparse,
+             loss_gate=True),
+        dict(name="sparse_deepfm", model="deepfm", env=sparse,
+             loss_gate=True),
+        dict(name="leaf_order", model="wide_deep", env=dict(env, **short),
+             fault="leaf_order"),
+        dict(name="stale_rows", model="wide_deep",
+             env=dict(sparse, **short), fault="stale_rows",
+             straggle_s=CTR_STRAGGLE_S),
+        dict(name="straggler", model="wide_deep", env=dict(sparse, **short),
+             straggle_s=CTR_STRAGGLE_S)]
+
+
+def _ps_grad_ms(sc: dict, deterministic: bool, reps: int = 20) -> float:
+    """Median host ms of one trainer's loss and gradient (to the host
+    vector) for a scenario's job at round 0, deterministic algorithms on
+    or off: what the BSP replay's bitwise agreement costs a round."""
+    job = ps_check.scenario_job(sc, DEVICE)
+    vec, treedef, shapes = ps.init_vector(job, DEVICE)
+    batch = job.make_batch(ps.batch_generator(0, 0, DEVICE), 0)
+    params = ps.unflatten_params(vec, treedef, shapes, DEVICE)
+    ctx = _deterministic() if deterministic else contextlib.nullcontext()
+    with ctx:
+        if job.embed_dim:
+            uids, inv = ps.unique_ids(job.ids_fn(batch))
+            rows = torch.zeros((len(uids), job.embed_dim), device=DEVICE)
+            inv_t = torch.from_numpy(inv).to(DEVICE)
+            fn = lambda: ps.loss_and_grads(  # noqa: E731
+                job.loss_fn, params, inv_t, batch, grad_args=(rows,))
+        else:
+            fn = lambda: ps.loss_and_grads(  # noqa: E731
+                job.loss_fn, params, batch)
+        return host_call_ms(fn, reps)
+
+
+def _ctr_world(smi: str, tmp: str) -> dict:
+    """The PS worlds of _ctr_scenarios through ps_check: 2 pservers (the
+    example, no card visible) and 2 trainer processes on the card, and,
+    while they run, each world's replay in this process on the card."""
+    scenarios = _ctr_scenarios()
+    spec = {"out": os.path.join(tmp, "ps_world"), "device": DEVICE,
+            "deterministic": True, "scenarios": scenarios}
+
+    def world():
+        t0 = time.perf_counter()
+        return ps_check.launch_world(spec, timeout=600), \
+            time.perf_counter() - t0
+
+    # the replays run here while the world's processes run (the host
+    # work of both is mostly the sparse tables' Python)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        running = pool.submit(world)
+        t0 = time.perf_counter()
+        with _deterministic():
+            replays = {sc["name"]: ps_check.replay(
+                ps_check.scenario_job(sc, DEVICE), 2, DEVICE)
+                for sc in scenarios}
+        replay_s = time.perf_counter() - t0
+        runs, world_s = running.result()
+    out = {}
+    for sc in scenarios:
+        job = ps_check.scenario_job(sc, DEVICE)
+        rep = replays[sc["name"]]
+        t = runs[sc["name"]]["trainers"]
+        losses = np.mean([x["losses"] for x in t], axis=0)
+        row = {
+            "model": sc["model"], "sparse": job.embed_dim > 0,
+            "fault": sc.get("fault", ""),
+            "fixed_batch": bool(sc.get("fixed_batch")),
+            "loss_gate": bool(sc.get("loss_gate")),
+            "straggle_s": sc.get("straggle_s", 0.0),
+            "pserver_rcs": runs[sc["name"]]["pserver_rcs"],
+            "trainers_equal": bool(np.array_equal(t[0]["vector"],
+                                                  t[1]["vector"])),
+            "replay_equal": bool(np.array_equal(t[0]["vector"],
+                                                rep["vector"])),
+            "replay_losses_equal": all(
+                np.array_equal(x["losses"], rep["losses"][w])
+                for w, x in enumerate(t)),
+            "replay_max_abs_diff": float(np.max(np.abs(
+                t[0]["vector"] - rep["vector"]))),
+            "losses": losses.tolist(),
+            "loss_first": float(losses[0]),
+            "loss_last_half_mean": float(losses[len(losses) // 2:]
+                                         .mean()),
+            "n_dense": int(len(t[0]["vector"])),
+            "round_ms": [float(1e3 * x) for x in t[0]["round_s"]],
+            "round_ms_median": float(1e3 * np.median(
+                np.concatenate([x["round_s"] for x in t]))),
+            "bytes_sent": [int(x["bytes_sent"]) for x in t],
+            "bytes_recv": [int(x["bytes_recv"]) for x in t]}
+        # less the /init post of the dense vector
+        row["bytes_sent_per_round"] = [
+            (b - 4 * row["n_dense"]) / len(losses)
+            for b in row["bytes_sent"]]
+        if job.embed_dim:
+            row["uniques_per_round"] = [x["uniques"].tolist()
+                                        for x in t]
+            row["bytes_sent_expected"] = [
+                ps_check.expected_bytes_sent(
+                    row["n_dense"], x["uniques"], 2, job.embed_dim)
+                for x in t]
+        out[sc["name"]] = row
+    by = {sc["name"]: sc for sc in scenarios}
+    cost = {name: {"deterministic_ms": _ps_grad_ms(by[name], True),
+                   "default_ms": _ps_grad_ms(by[name], False)}
+            for name in ("dense_wide_deep", "sparse_wide_deep")}
+    return {"card": smi, "scenarios": out, "world_s": world_s,
+            "replay_s": replay_s, "grad_ms_a_trainer": cost}
+
+
+def _ctr_world_problems(w: dict) -> list:
+    problems = []
+    for name, r in w["scenarios"].items():
+        if r["pserver_rcs"] != [0, 0]:
+            problems.append("%s: the pservers did not exit by the done "
+                            "protocol (%r)" % (name, r["pserver_rcs"]))
+        if r["fault"]:
+            if r["replay_equal"]:
+                problems.append("the replay gate missed the planted fault "
+                                "%s" % r["fault"])
+            continue
+        if not r["trainers_equal"]:
+            problems.append("%s: the trainers' final vectors differ" % name)
+        if not r["replay_equal"]:
+            problems.append("%s: the replay parts from the trainers' final "
+                            "vector by %g (stated: bitwise)"
+                            % (name, r["replay_max_abs_diff"]))
+        if not all(np.isfinite(r["losses"])):
+            problems.append("%s: a loss is not finite" % name)
+        # on fresh random-label batches the dense world's loss is batch
+        # noise (PERF.md): its fixed-batch twin carries the gate, as the
+        # sparse worlds of CTR_ROUNDS rounds do
+        if r["loss_gate"] and not r["loss_last_half_mean"] < r["loss_first"]:
+            problems.append("%s: the mean loss of the last rounds %g is not "
+                            "below the first round's %g" % (
+                                name, r["loss_last_half_mean"],
+                                r["loss_first"]))
+        if r["sparse"] and r["bytes_sent"] != r["bytes_sent_expected"]:
+            problems.append("%s: bytes sent %r, counted from the rounds' "
+                            "unique ids %r" % (name, r["bytes_sent"],
+                                               r["bytes_sent_expected"]))
+    return problems
+
+
+def phase_train_ctr(smi: str) -> dict:
+    """The CTR models at DEFAULT_CONFIG (26 slots x 10,000 ids, embed 16,
+    MLP 400-400-400), batch 512:
+    (a) collective: examples/train_wide_deep.py's and train_deepfm.py's
+        jobs through run_training on the card, bf16 on fp32 params:
+        step 0 in fp32 against the CPU, CTR_STEPS steps, a resume from
+        step 10 (bitwise), CTR_STEPS on one batch (the loss falls), a
+        profile;
+    (b)-(d) parameter-server mode: worlds of 2 pservers (the example,
+        TRAINING_ROLE=PSERVER, no card visible) and 2 trainers on the
+        card (ps_check), CTR_ROUNDS BSP rounds at lr 0.1, dense and
+        sparse, each held bitwise against its replay in this process,
+        with two planted faults the replay gate must catch."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ctr_") as tmp:
+        collective = {name: _ctr_collective(name, example, model, tmp)
+                      for name, example, model in CTR_MODELS}
+        world = _ctr_world(smi, tmp)
+    out = {"phase": "train_ctr", "card": smi, "collective": collective,
+           "ps": world, "seconds": time.perf_counter() - t0}
+    emit(out)
+    s = world["scenarios"]
+    print("train_ctr (%s): step ms wide_deep %.3f, deepfm %.3f (idle %.2f, "
+          "%.2f); PS round ms dense %.1f, sparse wide_deep %.1f, deepfm "
+          "%.1f; bytes sent a round dense %.0f, sparse %.0f; phase %.1f s"
+          % (smi, collective["wide_deep"]["step_ms_median"],
+             collective["deepfm"]["step_ms_median"],
+             collective["wide_deep"]["idle_share"],
+             collective["deepfm"]["idle_share"],
+             s["dense_wide_deep"]["round_ms_median"],
+             s["sparse_wide_deep"]["round_ms_median"],
+             s["sparse_deepfm"]["round_ms_median"],
+             s["dense_wide_deep"]["bytes_sent_per_round"][0],
+             s["sparse_wide_deep"]["bytes_sent_per_round"][0],
+             out["seconds"]), flush=True)
+    problems = []
+    for name, r in collective.items():
+        problems += _ctr_collective_problems(name, r)
+    problems += _ctr_world_problems(world)
+    if problems:
+        fail("train_ctr: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2896,6 +3228,7 @@ def main() -> int:
     dp_out = phase_train_dp(env["nvidia_smi"],
                             train["losses"]["fused_sgd"])
     sp_out = phase_train_sp(env["nvidia_smi"])
+    ctr_out = phase_train_ctr(env["nvidia_smi"])
     paged_shapes = kernels["kernels"][0]["shapes"]
     full = next(s for s in paged_shapes if s["case"] == "full_width"
                 and s["q_dtype"] == s["kv_dtype"] == str(torch.float32))
@@ -2938,7 +3271,8 @@ def main() -> int:
           "sp_flash_launches_per_rank": {
               "gpt2_sp4": sp_out["gpt2_sp4"]["launches"],
               "gpt2_2layers_dp2_sp2":
-                  sp_out["gpt2_2layers_dp2_sp2"]["launches"]}})
+                  sp_out["gpt2_2layers_dp2_sp2"]["launches"]},
+          "train_ctr_seconds": ctr_out["seconds"]})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,

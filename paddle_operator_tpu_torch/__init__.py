@@ -17,7 +17,11 @@ Ported so far:
   updated by SGD, ``fused_sgd``'s multi-tensor kernel or AdamW
   (:mod:`.ops.optim`); on one device, or data-parallel over the worker
   processes that :mod:`.launch` joins into a ``dp`` mesh
-  (:mod:`.parallel.mesh`, :mod:`.parallel.collectives`).
+  (:mod:`.parallel.mesh`, :mod:`.parallel.collectives`), or a ``dp`` x
+  ``sp`` mesh with ring attention (:mod:`.parallel.context`);
+* the CTR models (:mod:`.models.wide_deep`, :mod:`.models.deepfm`), in
+  collective mode through the runner and in parameter-server mode
+  (:mod:`.ps`): numpy pservers on the host, BSP trainers on the card.
 
 Entry points run on CUDA unless given ``device="cpu"``
 (:func:`.device.resolve_device`).

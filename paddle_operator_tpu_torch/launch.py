@@ -4,14 +4,17 @@ The port of ``paddle_operator_tpu/launch.py``. :func:`detect_env` reads
 the env the operator injects (``TPU_WORKER_ID`` per pod,
 ``TPU_WORKER_HOSTNAMES`` / ``TPUJOB_COORDINATOR`` from the ConfigMap
 barrier, with ``PADDLE_*`` names accepted for parity) into a
-:class:`LaunchConfig`: the rank, the world size, the coordinator and the
-elastic server. :func:`initialize_distributed` brings every worker into
-one ``torch.distributed`` process group at ``tcp://<coordinator>``: NCCL
-on CUDA, gloo on the CPU; a world of one process is a no-op.
+:class:`LaunchConfig`: the rank, the world size, the coordinator, the
+role and the parameter servers of PS mode (``TRAINING_ROLE``,
+``PADDLE_PSERVERS_IP_PORT_LIST``) and the elastic server.
+:func:`initialize_distributed` brings every worker into one
+``torch.distributed`` process group at ``tcp://<coordinator>``: NCCL on
+CUDA, gloo on the CPU; a world of one process is a no-op.
 :func:`main` detects the env, initialises (over NCCL, or the backend
 ``TPUJOB_DIST_BACKEND`` names), runs the script as ``__main__`` and
-destroys the group it made. The elastic agent is not
-ported.
+destroys the group it made. PS pods do not go through :func:`main`: they
+run their script directly (``examples/train_wide_deep_ps.py``), which
+dispatches on the role. The elastic agent is not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import os
 import runpy
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
@@ -30,13 +33,17 @@ from .device import DeviceLike, resolve_device
 
 @dataclass
 class LaunchConfig:
-    """The launch fields the runner reads. The multislice,
-    parameter-server and elastic fields of the JAX package's config wait
-    for the slices that use them."""
+    """The launch fields the runner and the parameter-server mode
+    (:mod:`.ps`) read. The multislice and elastic fields of the JAX
+    package's config wait for the slices that use them."""
 
     worker_id: int = 0             # GLOBAL rank across all slices
     num_workers: int = 1           # total hosts across all slices
     coordinator: str = ""          # host:port of slice-0 worker-0
+    role: str = "TRAINER"          # TRAINING_ROLE: TRAINER or PSERVER
+    # PS mode (operator env PADDLE_PSERVERS_IP_PORT_LIST): host:port of
+    # every parameter server; read by ps.run_ps_training
+    ps_endpoints: List[str] = field(default_factory=list)
     elastic_server: str = ""
 
     @property
@@ -112,6 +119,10 @@ def detect_env(environ: Optional[dict] = None) -> LaunchConfig:
             worker_id=worker_id,
             num_workers=num_workers,
             coordinator=coordinator,
+            role=_env("TRAINING_ROLE", default="TRAINER"),
+            ps_endpoints=[
+                e for e in _env("PADDLE_PSERVERS_IP_PORT_LIST").split(",")
+                if e],
             elastic_server=_env("TPUJOB_ELASTIC_SERVER", "PADDLE_ELASTIC_SERVER"),
         )
     finally:

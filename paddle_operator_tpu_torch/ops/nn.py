@@ -1,6 +1,6 @@
 """Core layers as (init, apply) function pairs over dict trees of tensors:
-the subset of ``paddle_operator_tpu/ops/nn.py`` that serving, ResNet
-training and GPT training need.
+the subset of ``paddle_operator_tpu/ops/nn.py`` that serving, ResNet,
+GPT, BERT and CTR training need.
 
 Layouts are the JAX package's, so a tree converted by :mod:`..bridge`
 runs here unchanged: dense kernels are ``[in, out]``; conv kernels are
@@ -211,6 +211,19 @@ def softmax_cross_entropy(logits: torch.Tensor,
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(dim=-1) == labels).float().mean()
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor,
+                                 labels: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid BCE in fp32, the reference's stable formula:
+    ``max(x, 0) - x y + log1p(exp(-|x|))``. At ``x = 0`` the gradient is
+    JAX's: ``torch.maximum`` splits it as ``jnp.maximum`` does, and ``|x|``
+    is written so that its slope there is 1, as ``jnp.abs``'s is
+    (``torch.abs`` gives 0)."""
+    x, y = logits.float(), labels.float()
+    abs_x = torch.where(x >= 0, x, -x)
+    return (torch.maximum(x, torch.zeros_like(x)) - x * y
+            + torch.log1p(torch.exp(-abs_x))).mean()
 
 
 # ---------------------------------------------------------------------------
