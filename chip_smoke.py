@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the eight ported paths:
+path. Then it drives the nine ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -47,6 +47,11 @@ path. Then it drives the eight ported paths:
   card visible) and 2 trainer processes on the card, dense and sparse,
   each world held bitwise against its replay, with two planted faults;
   gates in ``phase_train_ctr``. It launches no kernel of the port.
+* train_elastic: elastic restart cycles against a membership server run
+  here: ResNet-50 at full width shrinking from four worker processes to
+  two (B1 on every rank), GPT-2 small (2 layers) restarted at two
+  workers bitwise equal to an uninterrupted run (B2), and two planted
+  faults; gates in ``phase_train_elastic``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -72,8 +77,10 @@ import time
 import numpy as np
 import torch
 
-from paddle_operator_tpu_torch import bridge, dp_check, ps, ps_check, \
-    testing
+from paddle_operator_tpu_torch import bridge, dp_check, elastic_check, ps, \
+    ps_check, testing
+from paddle_operator_tpu_torch.data import process_shard, step_generator
+from paddle_operator_tpu_torch.elastic.server import MembershipServer
 from paddle_operator_tpu_torch.examples import train_bert, train_deepfm, \
     train_gpt, train_wide_deep
 from paddle_operator_tpu_torch.models import bert, deepfm, gpt, resnet, \
@@ -81,7 +88,8 @@ from paddle_operator_tpu_torch.models import bert, deepfm, gpt, resnet, \
 from paddle_operator_tpu_torch.ops import _kernels, attention, moe, optim
 from paddle_operator_tpu_torch.parallel import build_train_step, collectives
 from paddle_operator_tpu_torch.parallel.mesh import make_mesh
-from paddle_operator_tpu_torch.runner import TrainJob, run_training
+from paddle_operator_tpu_torch.runner import TrainJob, bind_mesh, \
+    run_training
 from paddle_operator_tpu_torch.serving import (
     ContinuousBatcher, Request, RequestQueue, ServingEngine)
 from paddle_operator_tpu_torch.testing import paged_decode_case
@@ -593,7 +601,7 @@ def _flash_measure(rate: float) -> dict:
     """Kernels B2a/B2b/B2c against their plain versions: fp32 at B=2, H=4,
     S=512, D in {64, 128}, and bf16 there at D in {64, 128, 256} (on the
     tensor cores), causal and not; the LSE entry point through autograd;
-    every shape of phase train_sp (:func:`_flash_sp`);
+    every shape of phases train_sp and train_elastic (:func:`_flash_sp`);
     bf16 at the training path's shape (16 x 12 x 1024 x 64, causal), where
     B2a, B2b and B2c are also launched twice and must agree bit for bit,
     their rounding model is held to the bf16 rule (and a single rounding
@@ -607,7 +615,7 @@ def _flash_measure(rate: float) -> dict:
     errors, chain = _flash_lse_entry(q, k, v, g, True)
     lse_entry = {"shape": [2, 4, 512, 64], "causal": True,
                  "errors": errors, "chain": chain}
-    sp = _flash_sp(SP_FLASH_CASES)
+    sp = _flash_sp(SP_FLASH_CASES + ELASTIC_FLASH_CASES)
 
     shape = (GPT_BATCH, gpt.BASE_CONFIG["heads"], GPT_SEQ,
              gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"])
@@ -3204,6 +3212,367 @@ def phase_train_ctr(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_elastic: elastic restart cycles, workers sharing the card
+# ---------------------------------------------------------------------------
+
+#: (a) ResNet-50 at full width shrinking from 4 workers to 2: steps, the
+#: checkpoint period of every elastic run, the step whose manifest moves
+#: the epoch (rank 0 holds the next step until it has moved, so the
+#: world stops at the boundary after it)
+ELASTIC_RESNET_STEPS, ELASTIC_EVERY, ELASTIC_SHRINK_AFTER = 8, 2, 4
+#: |loss(elastic world) - loss(one process)| / loss allowed at each step
+#: of (a)'s runs, from ``python -m paddle_operator_tpu_torch.elastic_class``
+#: on an H100 80GB HBM3 at 700 W: the shrink over six seeds in bf16 parted
+#: by up to 6.5e-3 over gloo and 9.2e-3 over NCCL (four cards), in fp32 by
+#: up to 7.4e-3; one process started one ulp up parted from itself by up
+#: to 8.1e-3 (bf16) and 5.0e-3 (fp32) in 8 steps. The steps amplify any
+#: rounding difference to this size, so it is not a fault's; the sharp
+#: checks are the replicas, the blocks, the world-4 steps bitwise against
+#: the same world uninterrupted and the first loss after the restore
+ELASTIC_RESNET_RTOL = 1.5e-2
+#: (b) GPT-2 small at DP_GPT_LAYERS layers restarted at 2 workers: steps,
+#: and the step after whose save the epoch moves; the planted faults'
+#: runs move it after step 2 of ELASTIC_FAULT_RESNET_STEPS (ResNet) or of
+#: ELASTIC_GPT_STEPS (GPT)
+ELASTIC_GPT_STEPS, ELASTIC_RESTART_AFTER = 6, 2
+ELASTIC_FAULT_RESNET_STEPS = 4
+#: the flash kernels' shape on (b) (a rank's 8 of the 16 sequences), held
+#: against their plain versions by the kernels phase
+ELASTIC_FLASH_CASES = (
+    ("dp_rank", (GPT_BATCH // 2, gpt.BASE_CONFIG["heads"], GPT_SEQ,
+                 gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"]),
+     "bfloat16", True),)
+#: each elastic run: (world, its job, steps, np after the move or None,
+#: the step after whose save the epoch moves or None, the planted fault).
+#: resnet_straight is (a)'s first world uninterrupted, the bitwise
+#: reference of (a)'s steps at world 4; gpt_straight is (b)'s
+ELASTIC_RUNS = {
+    "resnet_shrink": (4, "resnet50", ELASTIC_RESNET_STEPS, 2,
+                      ELASTIC_SHRINK_AFTER, ""),
+    "resnet_straight": (4, "resnet50", ELASTIC_SHRINK_AFTER + 1, None, None,
+                        ""),
+    "resnet_stale_shard": (4, "resnet50", ELASTIC_FAULT_RESNET_STEPS, 2, 2,
+                           "stale_shard"),
+    "gpt_restart": (2, "gpt2_2layers", ELASTIC_GPT_STEPS, None,
+                    ELASTIC_RESTART_AFTER, ""),
+    "gpt_straight": (2, "gpt2_2layers", ELASTIC_GPT_STEPS, None, None, ""),
+    "gpt_fresh_restart": (2, "gpt2_2layers", ELASTIC_GPT_STEPS, None, 2,
+                          "fresh_restart"),
+}
+#: the gate each planted fault must break
+ELASTIC_FAULT_GATES = {"resnet_stale_shard": "batch_block",
+                       "gpt_fresh_restart": "restore"}
+
+
+def _elastic_worlds(tmp: str, endpoint: str) -> dict:
+    """Run ELASTIC_RUNS in two worlds of workers started through
+    ``python -m paddle_operator_tpu_torch.launch`` with the elastic env:
+    four for the ResNet runs, two for the GPT runs; NCCL where the machine
+    has a card a worker, else gloo on this card. Returns the lines by
+    run."""
+    lines = {}
+    for world in (4, 2):
+        scenarios, triggers = [], []
+        for name, (w, model, steps, np1, after, fault) in \
+                ELASTIC_RUNS.items():
+            if w != world:
+                continue
+            ckpt = os.path.join(tmp, name)
+            scenarios.append({
+                "kind": "elastic", "name": name, "job": "chip-" + name,
+                "model": model, "steps": steps, "every": ELASTIC_EVERY,
+                "ckpt_dir": ckpt, "np": world, "fault": fault,
+                "hold_at": after if after is not None else -1})
+            if after is not None:
+                triggers.append(elastic_check.Trigger(
+                    "chip-" + name, ckpt, after, np=np1))
+        torch.cuda.empty_cache()
+        lines.update(elastic_check.launch(
+            {"out": os.path.join(tmp, "w%d" % world),
+             "scenarios": scenarios}, world, endpoint, triggers,
+            backend="nccl" if torch.cuda.device_count() >= world
+            else "gloo", timeout=600))
+    return lines
+
+
+def _block_prints(model: str, steps: int, worlds) -> dict:
+    """``bits_print`` of each rank's dp block of each step's global batch,
+    by ``(step, rank, world)``, drawn as the job's workers draw it."""
+    job = dp_check.card_job(model, steps)
+    out = {}
+    for step in range(steps):
+        batch = job.make_batch(step_generator(job.seed, step, DEVICE), step)
+        for world in worlds:
+            for rank in range(world):
+                out[(step, rank, world)] = elastic_check.bits_print(
+                    process_shard(batch, rank, world)).tolist()
+    return out
+
+
+def _cycle_of(line: dict) -> list:
+    """``(epoch, world, step)`` of each loss call of a rank's line."""
+    out = []
+    for cyc in line["cycle_stages"]:
+        out += [(cyc["epoch"], cyc["world"], s)
+                for s in range(cyc["start_step"], cyc["end_step"])]
+    return out
+
+
+def _elastic_problems(name: str, lines: list, want: dict, blocks: dict,
+                      checkpoints: dict, per_step: dict,
+                      rtol: float) -> list:
+    """The gates of one elastic run (its ranks' lines), as ``(gate,
+    message)``: cycles, steps, meshes, resume steps and leaves; replicas
+    equal at every step and at the end; each rank trained on its dp block
+    of the step's global batch; the global batch's loss at each step of
+    ``want`` (step -> (loss, relative bound)) within its bound; the first
+    step after the restore starts from the checkpoint's parameters, its
+    loss within ``rtol`` of the checkpoint's on that step's batch in one
+    process; launches a rank = ``per_step`` times the steps it
+    dispatched."""
+    world0, _, steps, np1, after, _ = ELASTIC_RUNS[name]
+    world1 = np1 or world0
+    problems = []
+
+    def bad(gate, msg):
+        problems.append((gate, "%s: %s" % (name, msg)))
+
+    stay = [r for r in lines if r["rank"] < world1]
+    gone = [r for r in lines if r["rank"] >= world1]
+    if [r["rank"] for r in lines] != list(range(world0)):
+        bad("ranks", "lines of ranks %r" % [r["rank"] for r in lines])
+    cycles = 1 if after is None else 2
+    meshes = [{"dp": world0}] + ([{"dp": world1}] if after is not None
+                                 else [])
+    resume = [r["resume_steps"] for r in stay]
+    for r in stay:
+        if (r["cycles"], r["steps"], r["mesh_history"]) != (cycles, steps,
+                                                            meshes):
+            bad("cycles", "rank %d: cycles %r, steps %r, meshes %r" % (
+                r["rank"], r["cycles"], r["steps"], r["mesh_history"]))
+    if after is not None and (len(set(map(tuple, resume))) != 1
+                              or len(resume[0]) != 1
+                              or resume[0][0] < ELASTIC_EVERY):
+        bad("restore", "resume steps %r" % resume)
+    for r in gone:
+        if (r["left_at_epoch"], r["mesh_history"]) != (2, [{"dp": world0}]):
+            bad("cycles", "rank %d left at %r with meshes %r" % (
+                r["rank"], r["left_at_epoch"], r["mesh_history"]))
+    prints: dict = {}
+    for r in lines:
+        for (epoch, world, step), p, b in zip(_cycle_of(r), r["prints"],
+                                              r["batch_prints"]):
+            prints.setdefault((epoch, step), set()).add(tuple(p))
+            if b != blocks[(step, r["rank"], world)]:
+                bad("batch_block", "rank %d trained on another block at "
+                    "step %d (world %d)" % (r["rank"], step, world))
+    if any(len(v) != 1 for v in prints.values()) \
+            or len({r.get("final_digest") for r in stay}) != 1:
+        bad("replicas", "replicas differ")
+    losses = elastic_check.step_losses(lines)
+    if sorted(losses) != list(range(steps)):
+        bad("losses", "steps with losses %r" % sorted(losses))
+    else:
+        for step, (loss, bound) in want.items():
+            if not abs(losses[step] - loss) <= bound * abs(loss):
+                bad("losses", "step %d's loss %r, its reference's %r (bound "
+                    "%g)" % (step, losses[step], loss, bound))
+    if after is not None and resume and resume[0]:
+        s = resume[0][0]
+        ck = checkpoints.get(s)
+        first = [r["prints"][_cycle_of(r).index((2, world1, s))]
+                 for r in stay if (2, world1, s) in _cycle_of(r)]
+        if ck is None or ck["epoch"] != 1 or first != [ck["print"]] * len(
+                stay):
+            bad("restore", "the first step after the restore does not "
+                "start from step %d's checkpoint" % s)
+        elif not abs(losses.get(s, np.inf) - ck["loss"]) <= rtol * abs(
+                ck["loss"]):
+            bad("restore", "the first loss after the restore %r, the "
+                "checkpoint's %r" % (losses.get(s), ck["loss"]))
+    for r in lines:
+        want = {k: v * len(r["losses"]) for k, v in per_step.items()}
+        if any(r["launches"][k] != v for k, v in want.items()):
+            bad("launches", "rank %d launched %r, expected %r"
+                % (r["rank"], r["launches"], want))
+    return problems
+
+
+def phase_train_elastic(smi: str) -> dict:
+    """Elastic training cycles through the port's elastic path (the
+    membership agent polling a port-copied ``MembershipServer`` run
+    here, a process group formed anew at each epoch, the interrupt
+    checkpoint, the restore onto the new mesh), workers started through
+    ``python -m paddle_operator_tpu_torch.launch`` with the operator's
+    elastic env; this process writes ``np`` and bumps the epoch as the
+    operator does (``np`` first):
+
+    (a) ResNet-50 v1.5 at 224x224, global batch 128, ``fused_sgd`` (B1)
+        at lr 0.01, sync BatchNorm, ELASTIC_RESNET_STEPS steps, a
+        checkpoint every ELASTIC_EVERY: four workers at np 4; once step
+        ELASTIC_SHRINK_AFTER's manifest is on disk, np 2 and epoch 2;
+        ranks 2 and 3 save with the others and leave; ranks 0 and 1
+        resume on {"dp": 2} and finish. The losses of every step of the
+        shrink and of the same world uninterrupted (``resnet_straight``)
+        within ELASTIC_RESNET_RTOL of one process's run of the same
+        steps, and the shrink's steps at world 4 bitwise those of
+        ``resnet_straight``;
+    (b) GPT-2 small at DP_GPT_LAYERS layers (full width, 16 x 1024,
+        adamw, the flash kernels B2), two workers, ELASTIC_GPT_STEPS
+        steps, the epoch moved after step ELASTIC_RESTART_AFTER's save:
+        per-rank losses and the final state bitwise equal to an
+        uninterrupted two-worker run (deterministic algorithms), losses
+        within DP_GPT_RTOL of one process;
+    (c) two planted faults, each of which its gate
+        (ELASTIC_FAULT_GATES) must reject: ``stale_shard`` on a shorter
+        (a), ``fresh_restart`` on (b).
+
+    Every run: cycles, steps, meshes and resume steps as planned; the
+    leaving ranks exit 0 with ``left_at_epoch`` 2; replicas equal at
+    every step and at the end; each rank trains on its dp block of each
+    step's global batch; the first step after the restore starts from
+    the checkpoint's parameters and its loss is the checkpoint's on that
+    batch in one process (within DP_RESNET_RTOL for ResNet: one
+    two-worker step from the same bits, 1.8e-3 at most over twelve
+    ``elastic_class`` readings; DP_GPT_RTOL for GPT); B1 once and B2 2 / 1 / 1 a layer for every step a rank
+    dispatched. Printed: steps and step ms a rank and cycle, the time to
+    recover by part, the launches. The workers share one card over gloo
+    unless the machine has a card each: a correctness run, not a
+    rate."""
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        one = {"resnet50": dp_check.card_run("resnet50",
+                                             ELASTIC_RESNET_STEPS)}
+        with _deterministic():
+            one["gpt2_2layers"] = dp_check.card_run("gpt2_2layers",
+                                                    ELASTIC_GPT_STEPS)
+        blocks = {"resnet50": _block_prints("resnet50", ELASTIC_RESNET_STEPS,
+                                            (4, 2)),
+                  "gpt2_2layers": _block_prints("gpt2_2layers",
+                                                ELASTIC_GPT_STEPS, (2,))}
+        torch.cuda.empty_cache()
+        t_worlds = time.perf_counter()
+        with MembershipServer() as server:
+            lines = _elastic_worlds(tmp, server.endpoint)
+        worlds_s = time.perf_counter() - t_worlds
+        checkpoints = {}
+        with _deterministic():
+            for name, (_, model, steps, _, after, _) in ELASTIC_RUNS.items():
+                stay = [r for r in lines[name] if r["resume_steps"]]
+                checkpoints[name] = {
+                    s: elastic_check.checkpointed(
+                        model, steps, os.path.join(tmp, name), s,
+                        device=DEVICE)
+                    for s in {r["resume_steps"][0] for r in stay}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        cudnn.deterministic, cudnn.benchmark = saved
+    per_gpt_step = {"flash_fwd": 2 * DP_GPT_LAYERS, "flash_dq": DP_GPT_LAYERS,
+                    "flash_dkv": DP_GPT_LAYERS}
+    step_losses = {name: elastic_check.step_losses(rs)
+                   for name, rs in lines.items()}
+    straight = step_losses["resnet_straight"]
+    gates = {}
+    for name, (_, model, steps, _, after, _) in ELASTIC_RUNS.items():
+        # every step within its class of one process: ResNet's
+        # four-worker class (the world-2 steps carry the world-4
+        # trajectory), GPT's
+        rtol = ELASTIC_RESNET_RTOL if model == "resnet50" else DP_GPT_RTOL
+        gates[name] = _elastic_problems(
+            name, lines[name],
+            {i: (one[model]["losses"][i], rtol) for i in range(steps)},
+            blocks[model], checkpoints[name],
+            {"fused_sgd": 1} if model == "resnet50" else per_gpt_step,
+            DP_RESNET_RTOL if model == "resnet50" else DP_GPT_RTOL)
+        if model == "resnet50" and after is not None:
+            # the steps before the shrink are the same world's
+            # uninterrupted run, bit for bit
+            cut = lines[name][0]["cycle_stages"][0]["end_step"]
+            if [step_losses[name][i] for i in range(cut)] != [
+                    straight.get(i) for i in range(cut)]:
+                gates[name].append(("straight", "%s: the steps before the "
+                                    "shrink are not resnet_straight's" % name))
+    restart, straight = lines["gpt_restart"], lines["gpt_straight"]
+    bitwise = [r["losses"] for r in restart] == [r["losses"]
+                                                 for r in straight] \
+        and [r["final_digest"] for r in restart] == [
+            r["final_digest"] for r in straight]
+
+    def cycles_of(r):
+        """A rank's steps and median step ms (forward start to update
+        end) by cycle."""
+        ms, call = [], 0
+        for cyc in r["cycle_stages"]:
+            n = cyc["end_step"] - cyc["start_step"]
+            ms.append({"epoch": cyc["epoch"], "world": cyc["world"],
+                       "steps": [cyc["start_step"], cyc["end_step"]],
+                       "step_ms_median": 1e3 * statistics.median(
+                           r["step_s"][call:call + n]) if n else None})
+            call += n
+        return ms
+
+    out = {
+        "phase": "train_elastic", "card": smi,
+        "backend": {w: "nccl" if torch.cuda.device_count() >= w else "gloo"
+                    for w in (4, 2)},
+        "note": "the workers share this one card over gloo: a correctness "
+                "check, not a multi-GPU rate"
+                if torch.cuda.device_count() < 4 else "a card a worker",
+        "runs": {name: [{k: r[k] for k in (
+            "rank", "cycles", "steps", "mesh_history", "resume_steps",
+            "left_at_epoch", "launches", "recovery", "wall_s",
+            "cycle_stages", "step_s")} | {"cycles_ms": cycles_of(r)}
+            for r in rs] for name, rs in lines.items()},
+        "step_losses": step_losses,
+        "one_process_losses": {k: v["losses"] for k, v in one.items()},
+        "max_rel_loss_diff_vs_one_process": {
+            name: max(abs(v - one[ELASTIC_RUNS[name][1]]["losses"][i])
+                      / abs(one[ELASTIC_RUNS[name][1]]["losses"][i])
+                      for i, v in sl.items())
+            for name, sl in step_losses.items()},
+        "checkpoints": checkpoints,
+        "gpt_restart_bitwise_vs_straight": bitwise,
+        "gates": {name: [g for g, _ in p] for name, p in gates.items()},
+        "tolerance": {"resnet_rel": ELASTIC_RESNET_RTOL,
+                      "resnet_first_after_restore_rel": DP_RESNET_RTOL,
+                      "gpt_rel": DP_GPT_RTOL},
+        "worlds_s": worlds_s, "seconds": time.perf_counter() - t0,
+    }
+    emit(out)
+    for name in ("resnet_shrink", "gpt_restart"):
+        for r in out["runs"][name]:
+            print("train_elastic %s rank %d (%s): %s; recovery %s; launches "
+                  "%s" % (name, r["rank"], smi, ", ".join(
+                      "epoch %d world %d steps %d-%d %.1f ms" % (
+                          c["epoch"], c["world"], c["steps"][0],
+                          c["steps"][1], c["step_ms_median"] or 0.0)
+                      for c in r["cycles_ms"]),
+                      json.dumps(r["recovery"]), r["launches"]), flush=True)
+    print("train_elastic (%s): largest loss difference from one process "
+          "%s; worlds %.1f s, phase %.1f s" % (
+              smi, json.dumps(out["max_rel_loss_diff_vs_one_process"]),
+              worlds_s, out["seconds"]), flush=True)
+    problems = []
+    for name, p in gates.items():
+        if name in ELASTIC_FAULT_GATES:
+            if ELASTIC_FAULT_GATES[name] not in {g for g, _ in p}:
+                problems.append("the %s gate missed the planted fault in %s"
+                                % (ELASTIC_FAULT_GATES[name], name))
+        else:
+            problems += [msg for _, msg in p]
+    if not bitwise:
+        problems.append("the restarted GPT run is not bitwise the "
+                        "uninterrupted one")
+    if problems:
+        fail("train_elastic: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3229,6 +3598,15 @@ def main() -> int:
                             train["losses"]["fused_sgd"])
     sp_out = phase_train_sp(env["nvidia_smi"])
     ctr_out = phase_train_ctr(env["nvidia_smi"])
+    elastic_out = phase_train_elastic(env["nvidia_smi"])
+    # the elastic path's launches, summed over the ranks of its sound
+    # runs: (a) for B1, (b) for B2
+    elastic_launches = {
+        k: sum(r["launches"][k] for r in elastic_out["runs"][run])
+        for run, keys in (("resnet_shrink", ("fused_sgd",)),
+                          ("gpt_restart", ("flash_fwd", "flash_dq",
+                                           "flash_dkv")))
+        for k in keys}
     paged_shapes = kernels["kernels"][0]["shapes"]
     full = next(s for s in paged_shapes if s["case"] == "full_width"
                 and s["q_dtype"] == s["kv_dtype"] == str(torch.float32))
@@ -3243,7 +3621,8 @@ def main() -> int:
         flash_rows.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces,
-            "launches": train_gpt_out["launches"]["flash"][key],
+            "launches": train_gpt_out["launches"]["flash"][key]
+            + elastic_launches["flash_" + key],
             "max_abs_err": max(c["errors"][o]["max_abs_err"]
                                for c in cases for o in outputs),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -3272,7 +3651,11 @@ def main() -> int:
               "gpt2_sp4": sp_out["gpt2_sp4"]["launches"],
               "gpt2_2layers_dp2_sp2":
                   sp_out["gpt2_2layers_dp2_sp2"]["launches"]},
-          "train_ctr_seconds": ctr_out["seconds"]})
+          "train_ctr_seconds": ctr_out["seconds"],
+          "elastic_launches_per_rank": {
+              run: [r["launches"] for r in elastic_out["runs"][run]]
+              for run in ("resnet_shrink", "gpt_restart")},
+          "train_elastic_seconds": elastic_out["seconds"]})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -3284,7 +3667,8 @@ def main() -> int:
         "library_ms": full["library_ms"]}, {
         "name": "fused_sgd", "route": "cuda", "source": SGD_SOURCE,
         "replaces": SGD_REPLACES,
-        "launches": train["launches"]["fused_sgd"],
+        "launches": train["launches"]["fused_sgd"]
+        + elastic_launches["fused_sgd"],
         "max_abs_err": sgd["max_abs_err"], "ms": sgd["kernel_ms"],
         "plain_ms": sgd["plain_ms"], "bound_ms": sgd["bound_ms"],
         "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"]}]

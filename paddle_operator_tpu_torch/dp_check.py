@@ -57,8 +57,9 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -367,31 +368,57 @@ CARD_GPT = {
 }
 
 
-def card_job(model: str, steps: int) -> TrainJob:
+#: the card's ResNet-50 jobs: the compute type of each
+CARD_RESNET = {"resnet50": torch.bfloat16, "resnet50_fp32": torch.float32}
+
+
+def _nudged(init: Callable) -> Callable:
+    """``init`` with every floating leaf moved one ulp up."""
+    def nudged(gen):
+        params = init(gen)
+        with torch.no_grad():
+            for t in bridge.leaves(params):
+                if t.is_floating_point():
+                    t.copy_(torch.nextafter(t, torch.full_like(t, np.inf)))
+        return params
+    return nudged
+
+
+def card_job(model: str, steps: int, seed: int = 0,
+             nudge: bool = False) -> TrainJob:
     """The train_dp and train_sp phases' jobs, at full width: ResNet-50
-    (224x224, global batch 128, ``fused_sgd`` at a constant lr of 0.01),
+    (224x224, global batch 128, ``fused_sgd`` at a constant lr of 0.01;
+    bf16 on fp32 parameters, or fp32 throughout for ``resnet50_fp32``),
     or a GPT-2 small job of :data:`CARD_GPT` (``examples/train_gpt.py``'s
     job: adamw, remat, the flash kernels; ring attention with
-    ``TPUJOB_SP``). The lr is small because the run is compared with one
-    process's: at the example's 0.4 the first steps on random labels are
-    chaotic, and rounding differences between the two runs would grow
-    past any useful bound (a CPU rehearsal at depth 18 parted by 20 % in
-    5 steps)."""
-    if model == "resnet50":
-        return TrainJob(
+    ``TPUJOB_SP``); ``seed`` draws the parameters and the batches, and
+    ``nudge`` moves every parameter one ulp up (a difference as small as
+    one rounding, to see what the steps make of it). The lr is small
+    because the run is compared with one process's: at the example's 0.4
+    the first steps on random labels are chaotic, and rounding
+    differences between the two runs would grow past any useful bound
+    (a CPU rehearsal at depth 18 parted by 20 % in 5 steps)."""
+    if model in CARD_RESNET:
+        job = TrainJob(
             init_params=lambda gen: resnet.init(gen, 50, 1000),
-            loss_fn=resnet.loss_fn,
+            loss_fn=functools.partial(resnet.loss_fn,
+                                      dtype=CARD_RESNET[model]),
             optimizer=optim.fused_sgd(0.01, momentum=0.9,
                                       weight_decay=1e-4),
             make_batch=lambda gen, step: resnet.synthetic_batch(gen, 128),
             merge_stats=resnet.merge_stats, total_steps=steps,
-            log_every=steps, seed=0)
-    if model in CARD_GPT:
+            log_every=steps, seed=seed)
+    elif model in CARD_GPT:
         from paddle_operator_tpu_torch.examples import train_gpt
 
-        return train_gpt.make_job(dict(CARD_GPT[model],
-                                       TPUJOB_STEPS=str(steps)))
-    raise ValueError("unknown card model %r" % model)
+        job = train_gpt.make_job(dict(CARD_GPT[model],
+                                      TPUJOB_STEPS=str(steps)))
+        job.seed = seed
+    else:
+        raise ValueError("unknown card model %r" % model)
+    if nudge:
+        job.init_params = _nudged(job.init_params)
+    return job
 
 
 def flash_device_ms(prof) -> float:
@@ -404,15 +431,15 @@ def flash_device_ms(prof) -> float:
                                              "flash_dkv")))
 
 
-def card_run(model: str, steps: int, profile: bool = False
-             ) -> Dict[str, Any]:
+def card_run(model: str, steps: int, profile: bool = False,
+             seed: int = 0, nudge: bool = False) -> Dict[str, Any]:
     """Train a :func:`card_job` through ``run_training`` on the card and
     return its losses, per-step fingerprints (index i: the parameters
     after step i), a digest of the final state (parameters and optimizer
     state), step ms, kernel launches, the sequence collectives' traffic
     and wall seconds; with ``profile``, the flash kernels' device ms a
     step from ``torch.profiler`` over the run."""
-    job = card_job(model, steps)
+    job = card_job(model, steps, seed, nudge)
     rec = job.loss_fn = _Recorder(job.loss_fn)
     optim.multi_tensor_sgd.launches = 0
     zero_counts()
@@ -751,18 +778,31 @@ def free_port() -> int:
 
 def launch_workers(spec: dict, world: int = 2, backend: str = "gloo",
                    timeout: float = 600.0,
-                   env: Optional[Dict[str, str]] = None) -> List[List[dict]]:
+                   env: Optional[Dict[str, str]] = None,
+                   script: str = os.path.abspath(__file__),
+                   during: Optional[Callable] = None) -> List[List[dict]]:
     """Write ``spec`` to ``<spec["out"]>/spec.json``, start ``world``
-    workers through ``python -m paddle_operator_tpu_torch.launch`` with
-    the operator's env (and ``env``), wait for them (killing every one if
-    any fails or the time runs out), and return each rank's JSON lines."""
+    workers of ``script`` (default: this file) through ``python -m
+    paddle_operator_tpu_torch.launch`` with the operator's env (and
+    ``env``), wait for them (killing every one if any fails or the time
+    runs out), and return each rank's JSON lines.
+
+    ``during(start)``, if given, runs on a thread of the parent while the
+    workers do, and must return before they all have; ``start(rank)``
+    starts one more rank of the world (a worker that joins later, at an
+    elastic grow). A rank may exit before the others (an elastic
+    shrink). The workers' output goes to
+    ``<spec["out"]>/rank<r>.{out,err}``."""
     os.makedirs(spec["out"], exist_ok=True)
     path = os.path.join(spec["out"], "spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
     port = free_port()
-    procs = []
-    for rank in range(world):
+    procs: Dict[int, subprocess.Popen] = {}
+    # ``during`` may start a rank while the world is torn down
+    lock, closed = threading.Lock(), []
+
+    def start(rank: int) -> None:
         penv = dict(os.environ, **(env or {}))
         penv.update(TPUJOB_NUM_WORKERS=str(world),
                     TPUJOB_WORKER_ID=str(rank),
@@ -771,33 +811,63 @@ def launch_workers(spec: dict, world: int = 2, backend: str = "gloo",
                     PYTHONPATH=os.pathsep.join(
                         [REPO] + [p for p in os.environ.get(
                             "PYTHONPATH", "").split(os.pathsep) if p]))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "paddle_operator_tpu_torch.launch",
-             os.path.abspath(__file__), path],
-            cwd=REPO, env=penv, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+        logs = [open(os.path.join(spec["out"], "rank%d.%s" % (rank, ext)),
+                     "w") for ext in ("out", "err")]
+        with logs[0], logs[1], lock:
+            if closed:
+                raise RuntimeError("the world of %s has ended" % path)
+            procs[rank] = subprocess.Popen(
+                [sys.executable, "-m", "paddle_operator_tpu_torch.launch",
+                 script, path], cwd=REPO, env=penv, stdout=logs[0],
+                stderr=logs[1])
+
+    def read(rank: int, ext: str) -> str:
+        with open(os.path.join(spec["out"], "rank%d.%s" % (rank, ext))) as f:
+            return f.read()
+
     deadline = time.monotonic() + timeout
-    results = []
+    errors: List[BaseException] = []
+
+    def run_during() -> None:
+        try:
+            during(start)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    thread = threading.Thread(target=run_during, daemon=True)
     try:
-        for rank, p in enumerate(procs):
-            try:
-                out, err = p.communicate(
-                    timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                raise RuntimeError("dp worker %d timed out after %.0f s"
-                                   % (rank, timeout))
-            if p.returncode != 0:
+        for rank in range(world):
+            start(rank)
+        if during is not None:
+            thread.start()
+        # a failed rank fails the world at once, also while ``during``
+        # runs: its peers would wait in a collective until the time runs
+        # out (``procs`` gains the ranks ``during`` starts: read it whole)
+        while any(p.poll() is None for p in list(procs.values())) \
+                or thread.is_alive():
+            if any(p.poll() for p in list(procs.values())) or errors:
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError("dp workers timed out after %.0f s"
+                                   % timeout)
+            time.sleep(0.05)
+        for rank in sorted(procs):
+            if procs[rank].poll():
                 raise RuntimeError("dp worker %d exited %d:\n%s"
-                                   % (rank, p.returncode, err[-4000:]))
-            results.append([json.loads(line) for line in out.splitlines()
-                            if line.startswith("{")])
+                                   % (rank, procs[rank].returncode,
+                                      read(rank, "err")[-4000:]))
+        if errors:
+            raise errors[0]
+        results = [[json.loads(line) for line in read(rank, "out").splitlines()
+                    if line.startswith("{")] for rank in sorted(procs)]
     finally:
-        for p in procs:
+        with lock:
+            closed.append(True)
+        for p in procs.values():
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
     return results
-
 
 if __name__ == "__main__":
     sys.exit(worker_main(sys.argv[1]))

@@ -114,18 +114,29 @@ class AsyncCheckpointer:
 
     * one save in flight: a new :meth:`save` first waits for the previous
       write, so checkpoints land in order;
-    * :meth:`wait` drains the pending write (call before exit);
-    * a failed write re-raises on the NEXT save/wait.
+    * :meth:`wait` drains the pending write (call before exit or an
+      elastic restart);
+    * a failed write re-raises on the NEXT save/wait;
+    * a second save of the step last accepted in the same directory is a
+      no-op (an elastic restart re-enters the boundary it saved at), until
+      a failed write or :meth:`sync_dedup` clears the marker.
     """
 
     def __init__(self) -> None:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._lock = threading.Lock()
+        # (dir, step) of the last accepted save
+        self._last_accepted: Optional[Tuple[str, int]] = None
 
     def save(self, ckpt_dir: str, step: int, state: Any,
              meta: Optional[dict] = None, keep: int = 3) -> None:
+        # drain first: a failed write clears the marker, so its retry of
+        # the same step is a real save
         self.wait()   # one in flight; raises a previous write's error
+        if self._last_accepted == (ckpt_dir, step):
+            log.info("checkpoint step %d already saved; skipped", step)
+            return
         # owned snapshot now: the loop goes on updating the state in place
         host_state = bridge.tree_map(_owned_host, state)
 
@@ -140,9 +151,21 @@ class AsyncCheckpointer:
         self._thread = threading.Thread(
             target=write, name="ckpt-write-%d" % step, daemon=True)
         self._thread.start()
+        # set last: a save that raised above left nothing to skip
+        self._last_accepted = (ckpt_dir, step)
+
+    def sync_dedup(self, ckpt_dir: str, restored_step: int) -> None:
+        """After a cycle's restore: the marker stays only if it names the
+        step the restore landed on. A fallback below it (the marked step
+        was quarantined as corrupt) means training will reach that
+        boundary again, and its save must be real."""
+        if (self._last_accepted is not None
+                and self._last_accepted != (ckpt_dir, restored_step)):
+            self._last_accepted = None
 
     def wait(self, timeout: Optional[float] = None) -> None:
-        """Drain the pending write; re-raise a failed write's exception."""
+        """Drain the pending write; re-raise a failed write's exception
+        (clearing the duplicate-save marker: the step never landed)."""
         if self._thread is not None:
             self._thread.join(timeout)
             if self._thread.is_alive():
@@ -153,6 +176,7 @@ class AsyncCheckpointer:
         with self._lock:
             err, self._error = self._error, None
         if err is not None:
+            self._last_accepted = None
             raise err
 
 
