@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the nine ported paths:
+path. Then it drives the ten ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -52,11 +52,19 @@ path. Then it drives the nine ported paths:
   two (B1 on every rank), GPT-2 small (2 layers) restarted at two
   workers bitwise equal to an uninterrupted run (B2), and two planted
   faults; gates in ``phase_train_elastic``.
+* train_moe_ep: MoE across worker processes, four workers in one world:
+  GPT-2 small with 8-expert FFNs (12 layers) on dp4 (the example's path,
+  experts replicated) and on ``{"dp": 2, "ep": 2}`` with
+  ``gpt_rules() + moe_rules()`` (4 experts a rank, B4 on a rank's local
+  experts), TPUJOB_SP=2 at 2 layers (routing over sequence blocks), each
+  against one process, and three planted faults; gates in
+  ``phase_train_moe_ep``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero without that last line. Without CUDA it exits 2. On a machine
-of four or more cards, phase train_sp runs over NCCL, one card a worker.
+of four or more cards, phases train_sp and train_moe_ep run over NCCL,
+one card a worker.
 """
 
 from __future__ import annotations
@@ -77,9 +85,10 @@ import time
 import numpy as np
 import torch
 
-from paddle_operator_tpu_torch import bridge, dp_check, elastic_check, ps, \
-    ps_check, testing
+from paddle_operator_tpu_torch import bridge, dp_check, elastic_check, \
+    moe_check, ps, ps_check, testing
 from paddle_operator_tpu_torch.data import process_shard, step_generator
+from paddle_operator_tpu_torch.moe_check import rel_diffs
 from paddle_operator_tpu_torch.elastic.server import MembershipServer
 from paddle_operator_tpu_torch.examples import train_bert, train_deepfm, \
     train_gpt, train_wide_deep
@@ -601,7 +610,8 @@ def _flash_measure(rate: float) -> dict:
     """Kernels B2a/B2b/B2c against their plain versions: fp32 at B=2, H=4,
     S=512, D in {64, 128}, and bf16 there at D in {64, 128, 256} (on the
     tensor cores), causal and not; the LSE entry point through autograd;
-    every shape of phases train_sp and train_elastic (:func:`_flash_sp`);
+    every shape of phases train_sp, train_elastic and train_moe_ep
+    (:func:`_flash_sp`);
     bf16 at the training path's shape (16 x 12 x 1024 x 64, causal), where
     B2a, B2b and B2c are also launched twice and must agree bit for bit,
     their rounding model is held to the bf16 rule (and a single rounding
@@ -615,7 +625,8 @@ def _flash_measure(rate: float) -> dict:
     errors, chain = _flash_lse_entry(q, k, v, g, True)
     lse_entry = {"shape": [2, 4, 512, 64], "causal": True,
                  "errors": errors, "chain": chain}
-    sp = _flash_sp(SP_FLASH_CASES + ELASTIC_FLASH_CASES)
+    sp = _flash_sp(SP_FLASH_CASES + ELASTIC_FLASH_CASES
+                   + MOE_EP_FLASH_CASES)
 
     shape = (GPT_BATCH, gpt.BASE_CONFIG["heads"], GPT_SEQ,
              gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"])
@@ -1687,7 +1698,7 @@ def moe_variant(kernel: str, tin, tout, weighted: bool) -> str:
 
 def _moe_args(kernel: str, tin, tout, weighted: bool, case: dict) -> tuple:
     """The arguments of one B4 variant on ``case``, its input in ``tin``."""
-    e, c = MOE_EXPERTS, case["capacity"]
+    e, c = case.get("experts", MOE_EXPERTS), case["capacity"]
     w = case["gate"] if weighted else None
     if kernel == "dispatch":
         return (case["x"].to(tin), case["choice"], case["pos"], e, c, tout, w)
@@ -1820,7 +1831,10 @@ def _moe_measure(rate: float) -> dict:
     """Kernels B4a/B4b against their plain versions, bitwise, over every
     variant: at the GPT-2 small MoE path's shape (T = 16 x 1024, D = 768,
     E = 8, capacity 2560) and at the BERT-base-MoE path's (T = 16 x 512,
-    capacity 1280), both on the 16-byte path; then at a ragged T; at
+    capacity 1280), both on the 16-byte path; at a rank's tokens and
+    experts on the MoE-ep path (MOE_EP_B4_CASES: a dp4 rank's 4096
+    tokens over 8 experts, a dp2 x ep2 rank's 8192 tokens over its 4,
+    the capacity of the global 16384); then at a ragged T; at
     capacity factor 0.5 (dropped rows must be exact zeros); at D = 203
     (the scalar path); and with the forward fault planted (the check must
     reject it). Each variant a bf16 train step launches is timed at the
@@ -1845,6 +1859,12 @@ def _moe_measure(rate: float) -> dict:
             ("combine", BF16, BF16, True), ("combine", BF16, F32, False)))
         checks[name].update(tokens=tokens, dim=case["x"].shape[1],
                             dropped=tokens - case["kept"])
+    for name, first, count, expert0, experts in MOE_EP_B4_CASES:
+        case = _moe_rank_case(first, count, expert0, experts)
+        checks[name] = dict(_moe_compare(case, MOE_VARIANTS), tokens=count,
+                            experts=experts, first_expert=expert0,
+                            capacity=case["capacity"], kept=case["kept"])
+        del case
     with _moe_path("kernels", MOE_FORWARD_FAULT):
         planted = _moe_compare(path, (("combine", BF16, BF16, True),))
 
@@ -3573,6 +3593,316 @@ def phase_train_elastic(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_moe_ep: MoE across worker processes (dp, dp x sp, dp x ep)
+# ---------------------------------------------------------------------------
+
+#: the workers of the phase (one world for every run)
+MOE_EP_WORKERS = 4
+#: steps of the 12-layer runs (the first of train_gpt_moe's run (a)'s 10),
+#: of (c)'s sp run, and of the 2-layer dp2 x ep2 runs (sound and faults)
+MOE_EP_STEPS, MOE_EP_SP_STEPS, MOE_EP_SHORT_STEPS = 5, 5, 2
+#: |loss(workers) - loss(one process)| / loss allowed at each step, and
+#: between (a) and (b): the class of ``moe_check``'s readings (PERF.md
+#: §6, PR 13). Adamw's first steps move each parameter by about lr times
+#: the sign of its gradient, so a rounding difference in a small
+#: gradient becomes a step of lr, and 6 MoE layers route on it: one
+#: process with its parameters one ulp up parts from itself by up to
+#: 7.3e-3 in 5 steps on an H100 80GB HBM3 at 700 W, as far as the
+#: four-worker worlds (up to 6.9e-3 over seeds 0-3)
+MOE_EP_LOSS_RTOL = 1.5e-2
+#: the same at step 0, before any update: the forward's rounding alone
+#: (at most 9.8e-6 over the same readings)
+MOE_EP_LOSS0_RTOL = 1e-4
+#: step 0's gradients against one process's: the largest ||g - g_one|| /
+#: ||g_one|| over the replicated leaves, and over a rank's expert blocks.
+#: train_gpt_moe's class (GPT_MOE_GRAD_RTOL): a deep layer's expert sums
+#: its tokens' nearly random contributions, and a token routed elsewhere
+#: moves it. On an H100 80GB HBM3 at 700 W the sound 12-layer runs read
+#: up to 0.118 (an expert wi of layer 10), the 2-layer ones 0.0083 (0.093
+#: under sp, the router), and the planted faults 0.455 and 0.542
+MOE_EP_GRAD_RTOL = GPT_MOE_GRAD_RTOL
+#: the first MoE layer's routing of a rank's block at step 0 against one
+#: process's (``moe_check.routing_apart``): at most this many tokens sent
+#: to another expert or dropped in one run only, and no position shifted
+#: by more (each near-tie routed elsewhere shifts its expert's later
+#: positions by one)
+MOE_EP_ROUTE_APART = 64
+#: the phase's sound runs (the kernels line counts their launches)
+MOE_EP_SOUND = ("dp4", "dp2_ep2", "sp2_2layers", "dp2_ep2_2layers")
+#: each planted fault (``moe_check.FAULTS``) and the gate that must reject
+#: it
+MOE_EP_FAULT_GATES = {"route_per_rank": "routing",
+                      "ep_x_cotangent": "grads",
+                      "norm_without_ep": "replicas"}
+#: B4 at a rank's shapes on this path, held against its plain versions in
+#: the kernels phase: (case, the rank's first token and token count of the
+#: global 16 x 1024, its first expert and expert count)
+MOE_EP_B4_CASES = (
+    ("dp4_rank", GPT_BATCH * GPT_SEQ // 4, GPT_BATCH * GPT_SEQ // 4, 0,
+     MOE_EXPERTS),
+    ("dp2_ep2_rank", 0, GPT_BATCH * GPT_SEQ // 2, MOE_EXPERTS // 2,
+     MOE_EXPERTS // 2))
+#: B2 at the shapes this path gives it that no other phase's check holds:
+#: a dp4 rank's 4 sequences, and a ring hop of (c)'s dp2 x sp2 at 2 layers
+MOE_EP_FLASH_CASES = (
+    ("dp_rank", (GPT_BATCH // 4, gpt.BASE_CONFIG["heads"], GPT_SEQ,
+                 gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"]),
+     "bfloat16", True),) + tuple(
+    ("ring_hop", (GPT_BATCH // 2, gpt.BASE_CONFIG["heads"], GPT_SEQ // 2,
+                  gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"]),
+     "bfloat16", causal) for causal in (True, False))
+
+
+@torch.no_grad()
+def _moe_rank_case(first: int, count: int, expert0: int,
+                   experts: int) -> dict:
+    """B4's operands on one rank of the MoE-ep path: the GPT path's case
+    (:func:`_moe_case`, routed over the global batch) cut to the rank's
+    tokens, its expert ids shifted to its first expert, and expert
+    outputs for its experts only."""
+    case = _moe_case(GPT_BATCH * GPT_SEQ, 1.25)
+    rows = slice(first, first + count)
+    return {"x": case["x"][rows].contiguous(),
+            "eo": case["eo"][expert0:expert0 + experts].contiguous(),
+            "gate": case["gate"][rows].contiguous(),
+            "choice": (case["choice"][rows] - expert0).contiguous(),
+            "pos": case["pos"][rows].contiguous(),
+            "capacity": case["capacity"], "experts": experts,
+            "kept": int(((case["choice"][rows] >= expert0)
+                         & (case["choice"][rows] < expert0 + experts)
+                         & (case["pos"][rows] < case["capacity"])).sum())}
+
+
+def _moe_ep_scenarios(refs: dict) -> list:
+    """The phase's runs in one four-worker world: each of
+    ``moe_check.CARD_RUNS`` sound, then the planted faults on the 2-layer
+    dp2 x ep2 run; every run with its one process's step-0 routing and
+    gradients (``refs``)."""
+    out = []
+    for run, steps, fault in (
+            ("dp4", MOE_EP_STEPS, ""), ("dp2_ep2", MOE_EP_STEPS, ""),
+            ("sp2_2layers", MOE_EP_SP_STEPS, ""),
+            ("dp2_ep2_2layers", MOE_EP_SHORT_STEPS, "")) + tuple(
+            ("dp2_ep2_2layers", MOE_EP_SHORT_STEPS, f)
+            for f in moe_check.FAULTS):
+        ref = refs[moe_check.ONE_PROCESS[run]]
+        out.append({"kind": "card", "name": run + ("_" + fault if fault
+                                                   else ""),
+                    "run": run, "steps": steps, "fault": fault,
+                    "routes_ref": ref["routes"], "grads_ref": ref["grads"]})
+    return out
+
+
+def global_losses(lines: list) -> list:
+    """A run's global loss at each step from its ranks' parts (the train
+    step's metric): their mean, times the sequence blocks of a replica."""
+    sp = 2 if lines[0]["run"].startswith("sp2") else 1
+    return (np.mean([r["losses"] for r in lines], axis=0) * sp).tolist()
+
+
+def _moe_ep_problems(name: str, lines: list, one: list, per_step: dict,
+                     experts: bool) -> list:
+    """``(gate, message)`` of every gate a run of the phase fails: losses
+    within MOE_EP_LOSS_RTOL of one process's (``one``) at every step and
+    within MOE_EP_LOSS0_RTOL at step 0;
+    replicas (the replicated leaves equal on every rank after every step
+    and at the end; each expert shard equal on its dp replicas); the
+    clip's norm equal on every rank; step 0's gradients within
+    MOE_EP_GRAD_RTOL; the first MoE layer's routing within
+    MOE_EP_ROUTE_APART (tokens to another expert or dropped in one run
+    only, and the largest position shift);
+    ``per_step`` launches of a rank a step; finite losses."""
+    problems = []
+    steps = len(lines[0]["losses"])
+    rel = rel_diffs(global_losses(lines), one)
+    if not max(rel) <= MOE_EP_LOSS_RTOL:
+        problems.append(("loss", "%s losses part from one process's by %g"
+                         % (name, max(rel))))
+    if not rel[0] <= MOE_EP_LOSS0_RTOL:
+        problems.append(("loss", "%s step 0's loss parts from one "
+                         "process's by %g" % (name, rel[0])))
+    dense = [[p[0] for p in r["fingerprints"]] for r in lines]
+    same = all(d == dense[0] for d in dense) and len(
+        {r["dense_digest"] for r in lines}) == 1
+    if experts:
+        half = MOE_EP_WORKERS // 2
+        same = same and all(
+            [p[1] for p in lines[r]["fingerprints"]]
+            == [p[1] for p in lines[r + half]["fingerprints"]]
+            and lines[r]["expert_digest"] == lines[r + half]["expert_digest"]
+            for r in range(half))
+    if not same:
+        problems.append(("replicas", "%s replicas differ" % name))
+    if len({tuple(r["grad_norms"]) for r in lines}) != 1:
+        problems.append(("replicas", "%s ranks clip by different norms: %r"
+                         % (name, [r["grad_norms"] for r in lines])))
+    for r in lines:
+        for part in ("grads_dense", "grads_expert"):
+            if part in r and not r[part]["max_rel_diff"] <= MOE_EP_GRAD_RTOL:
+                problems.append(("grads", "%s rank %d's step-0 gradients "
+                                 "part from one process's by %g at %s"
+                                 % (name, r["rank"], r[part]["max_rel_diff"],
+                                    r[part]["leaf"])))
+        if not max(r["routing_apart"].values()) <= MOE_EP_ROUTE_APART:
+            problems.append(("routing", "%s rank %d routes apart from one "
+                             "process: %r" % (name, r["rank"],
+                                              r["routing_apart"])))
+        want = {k: v * steps for k, v in per_step.items()}
+        if any(r["launches"][k] != v for k, v in want.items()):
+            problems.append(("launches", "%s rank %d launched %r, expected "
+                             "%r" % (name, r["rank"], r["launches"], want)))
+        if r["path_launches"]["dispatch_scalar"] \
+                or r["path_launches"]["combine_scalar"]:
+            problems.append(("launches", "%s rank %d: a B4 launch left the "
+                             "16-byte path" % (name, r["rank"])))
+        if not all(np.isfinite(x) for x in r["losses"]):
+            problems.append(("loss", "%s: a loss is not finite" % name))
+    return problems
+
+
+def phase_train_moe_ep(smi: str, one_12layers: list = None) -> dict:
+    """MoE across worker processes through the port's path (global
+    routing over the token group, an ``ep`` mesh axis with the expert
+    leaves split by ``moe_rules``, the ep sums of the MoE layers, the
+    expert gradients averaged over their replicas and the clip's norm
+    summed over ep): GPT-2 small with 8-expert switch FFNs on every second
+    layer at full width (``examples/train_gpt.make_job`` with
+    TPUJOB_MOE_EXPERTS=8 and TPUJOB_MOE_FUSED=1: 16 x 1024, adamw,
+    remat, grad clip 1.0, the first steps of train_gpt_moe's 10-step
+    schedule, deterministic algorithms), four workers started through
+    ``python -m paddle_operator_tpu_torch.launch`` in one world (NCCL, a
+    card each, on a machine of four cards; else gloo on this card):
+
+    (a) dp4 at 12 layers (the example's own path at four workers, experts
+        replicated), MOE_EP_STEPS steps, against one process
+        (``one_12layers``: train_gpt_moe's run (a), or run here);
+    (b) ``{"dp": 2, "ep": 2}`` with ``gpt_rules() + moe_rules()`` set on
+        the example's job, as the reference's tests set them: each rank
+        holds 4 of each layer's 8 experts and runs B4 on them; against
+        one process and against (a);
+    (c) TPUJOB_SP=2 at 2 layers (dp2 x sp2 on the four workers: routing
+        over sequence blocks and batch rows), MOE_EP_SP_STEPS steps,
+        against one process;
+    (d) the 2-layer dp2 x ep2 run sound and under each planted fault
+        (``moe_check.FAULTS``), each of which its gate
+        (MOE_EP_FAULT_GATES) must reject.
+
+    Gates of every sound run (:func:`_moe_ep_problems`): losses, replica
+    identity (replicated leaves bitwise on every rank, expert shards
+    bitwise on their dp replicas), equal clip norms, step-0 gradients,
+    the first MoE layer's routing against one process's, B4 and B2
+    launches of a rank a step (``moe_launches_per_step``), the 16-byte
+    path. Printed: step ms a rank, the MoE collectives' share of it
+    (host seconds), B4 launches a rank a step, peak GB a rank and the
+    phase's seconds. On gloo the workers share one card: a correctness
+    run, not a rate."""
+    t0 = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= MOE_EP_WORKERS \
+        else "gloo"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_ep_")
+    try:
+        refs = {"12layers": moe_check.one_process(
+                    "12layers", 0 if one_12layers else MOE_EP_STEPS, tmp),
+                "2layers": moe_check.one_process("2layers", MOE_EP_SP_STEPS,
+                                                 tmp)}
+        one = {"12layers": one_12layers or refs["12layers"]["losses"],
+               "2layers": refs["2layers"]["losses"]}
+        torch.cuda.empty_cache()
+        t_world = time.perf_counter()
+        lines = moe_check.launch(
+            {"out": os.path.join(tmp, "workers"),
+             "scenarios": _moe_ep_scenarios(refs)},
+            world=MOE_EP_WORKERS, backend=backend, timeout=1100)
+        world_s = time.perf_counter() - t_world
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs: dict = {}
+    for rank_lines in lines:
+        for line in rank_lines:
+            runs.setdefault(line["scenario"], []).append(line)
+    runs = {k: sorted(v, key=lambda r: r["rank"]) for k, v in runs.items()}
+    gates, summary = {}, {}
+    for name, rs in runs.items():
+        run = rs[0]["run"]
+        layers = 12 if moe_check.ONE_PROCESS[run] == "12layers" else 2
+        cfg = dict(gpt.BASE_CONFIG, layers=layers, moe_experts=MOE_EXPERTS,
+                   moe_every=2)
+        sp = 2 if run.startswith("sp2") else 1
+        per_step = dict(moe_launches_per_step(cfg, remat=True),
+                        **_sp_flash_per_step(layers, sp))
+        experts = "ep2" in run
+        gates[name] = _moe_ep_problems(
+            name, rs, one[moe_check.ONE_PROCESS[run]][:len(rs[0]["losses"])],
+            per_step, experts)
+        step_s = [sum(r["step_ms"][1:]) / 1e3 for r in rs]
+        summary[name] = {
+            "losses": global_losses(rs),
+            "max_rel_loss_diff_vs_one_process": max(rel_diffs(
+                global_losses(rs), one[moe_check.ONE_PROCESS[run]])),
+            "grad_norms_rank0": rs[0]["grad_norms"],
+            "grads_dense": [r["grads_dense"] for r in rs],
+            "grads_expert": [r.get("grads_expert") for r in rs],
+            "routing_apart": [r["routing_apart"] for r in rs],
+            "step_ms_median": [statistics.median(r["step_ms"][1:])
+                               for r in rs],
+            "moe_collective_share": [
+                r["moe_traffic"]["seconds"] / max(s, 1e-9)
+                for r, s in zip(rs, step_s)],
+            "moe_traffic": [r["moe_traffic"] for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "b4_launches_per_step": [
+                {k: r["launches"][k] / len(r["losses"])
+                 for k in ("dispatch", "combine")} for r in rs],
+            "expected_per_step": per_step,
+            "peak_gb": [r["peak_gb"] for r in rs],
+            "mesh_history": [r["mesh_history"] for r in rs],
+            "wall_s": [r["wall_s"] for r in rs],
+            "gates_failed": sorted({g for g, _ in gates[name]})}
+    a, b = global_losses(runs["dp4"]), global_losses(runs["dp2_ep2"])
+    a_vs_b = max(rel_diffs(b, a))
+    out = {"phase": "train_moe_ep", "card": smi, "backend": backend,
+           "note": "four worker processes share this one card over gloo: "
+                   "a correctness check, not a multi-GPU rate"
+                   if backend == "gloo" else "four workers, one card each",
+           "one_process_losses": one, "runs": summary,
+           "max_rel_loss_diff_dp2_ep2_vs_dp4": a_vs_b,
+           "dp2_ep2_bitwise_vs_dp4": a == b,
+           "tolerance": {"loss_rel": MOE_EP_LOSS_RTOL,
+                         "step0_loss_rel": MOE_EP_LOSS0_RTOL,
+                         "grad_rel": MOE_EP_GRAD_RTOL,
+                         "routing_apart": MOE_EP_ROUTE_APART},
+           "world_s": world_s, "seconds": time.perf_counter() - t0}
+    emit(out)
+    for name in ("dp4", "dp2_ep2", "sp2_2layers"):
+        r = summary[name]
+        print("train_moe_ep %s (%s, %s): step ms a rank %s; MoE collectives "
+              "%s of it; B4 a rank a step %s; peak GB %s; off one process "
+              "by %.3g" % (
+                  name, smi, backend,
+                  ["%.1f" % x for x in r["step_ms_median"]],
+                  ["%.3f" % x for x in r["moe_collective_share"]],
+                  r["b4_launches_per_step"][0],
+                  ["%.2f" % x for x in r["peak_gb"]],
+                  r["max_rel_loss_diff_vs_one_process"]), flush=True)
+    print("train_moe_ep (%s): dp2 x ep2 against dp4 %.3g; phase %.1f s"
+          % (smi, a_vs_b, out["seconds"]), flush=True)
+    problems = []
+    for name, p in gates.items():
+        fault = runs[name][0]["fault"]
+        if fault:
+            if MOE_EP_FAULT_GATES[fault] not in {g for g, _ in p}:
+                problems.append("the %s gate missed the planted fault %s"
+                                % (MOE_EP_FAULT_GATES[fault], fault))
+        else:
+            problems += [msg for _, msg in p]
+    if not a_vs_b <= MOE_EP_LOSS_RTOL:
+        problems.append("dp2 x ep2 and dp4 part by %g" % a_vs_b)
+    if problems:
+        fail("train_moe_ep: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3599,6 +3929,14 @@ def main() -> int:
     sp_out = phase_train_sp(env["nvidia_smi"])
     ctr_out = phase_train_ctr(env["nvidia_smi"])
     elastic_out = phase_train_elastic(env["nvidia_smi"])
+    moe_ep_out = phase_train_moe_ep(
+        env["nvidia_smi"], moe_out["losses"]["kernels"][:MOE_EP_STEPS])
+    # the MoE-ep path's launches, summed over the ranks of its sound runs
+    moe_ep_launches = {
+        k: sum(n[k] for name in MOE_EP_SOUND
+               for n in moe_ep_out["runs"][name]["launches"])
+        for k in ("dispatch", "combine", "flash_fwd", "flash_dq",
+                  "flash_dkv")}
     # the elastic path's launches, summed over the ranks of its sound
     # runs: (a) for B1, (b) for B2
     elastic_launches = {
@@ -3622,7 +3960,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces,
             "launches": train_gpt_out["launches"]["flash"][key]
-            + elastic_launches["flash_" + key],
+            + elastic_launches["flash_" + key]
+            + moe_ep_launches["flash_" + key],
             "max_abs_err": max(c["errors"][o]["max_abs_err"]
                                for c in cases for o in outputs),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -3634,7 +3973,8 @@ def main() -> int:
         moe_rows.append({
             "name": name, "route": "cuda", "source": MOE_SOURCE,
             "replaces": replaces,
-            "launches": moe_out["launches"]["kernels"][key],
+            "launches": moe_out["launches"]["kernels"][key]
+            + moe_ep_launches[key],
             "max_abs_err": max(r["max_abs_err"]
                                for case in kernels["moe"]["checks"].values()
                                for n, r in case.items()
@@ -3655,7 +3995,11 @@ def main() -> int:
           "elastic_launches_per_rank": {
               run: [r["launches"] for r in elastic_out["runs"][run]]
               for run in ("resnet_shrink", "gpt_restart")},
-          "train_elastic_seconds": elastic_out["seconds"]})
+          "train_elastic_seconds": elastic_out["seconds"],
+          "moe_ep_launches_per_rank": {
+              name: moe_ep_out["runs"][name]["launches"]
+              for name in MOE_EP_SOUND},
+          "train_moe_ep_seconds": moe_ep_out["seconds"]})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,

@@ -12,6 +12,9 @@ inside the tree), so a round trip is bit-equal.
 :func:`flatten` names each leaf by its path, ``"stages/0/1/conv2/kernel"``,
 exactly as the JAX package's checkpoint writer does (sorted dict keys,
 list indices), so checkpoints cross between the two packages.
+:func:`ep_slice` cuts a whole tree to what one rank of an ``ep`` mesh
+axis holds (its block of the expert leaves), so that a JAX-initialised
+tree starts an expert-parallel run of the port.
 """
 
 from __future__ import annotations
@@ -90,3 +93,21 @@ def unflatten(struct: Any, flat: Dict[str, Any], prefix: str = "") -> Any:
         return [unflatten(v, flat, "%s%d/" % (prefix, i))
                 for i, v in enumerate(struct)]
     return flat[prefix[:-1]]
+
+
+def ep_slice(tree: Any, index: int, count: int, rules: Any = None) -> Any:
+    """``tree`` (numpy or torch leaves) as the rank at index ``index`` of
+    an ``ep`` axis of ``count`` holds it: each leaf that ``rules``
+    (default: ``parallel.sharding.moe_rules()``) split over ep cut to
+    block ``index`` of its leading axis, the others as they are."""
+    from .parallel import sharding
+
+    rules = sharding.moe_rules() if rules is None else rules
+    specs = sharding.shard_tree(tree, {"ep": count}, rules)
+    out = {}
+    for path, leaf in flatten(tree).items():
+        if "ep" in sharding.split_axes(specs[path]).get(0, ()):
+            n = leaf.shape[0] // count
+            leaf = leaf[index * n:(index + 1) * n]
+        out[path] = leaf
+    return unflatten(structure(tree), out)

@@ -14,8 +14,8 @@ no kernel of the port.
 
 Like the reference's example it has no MoE knob: BERT-base with MoE FFNs
 is a ``TrainJob`` over ``bert.init(dict(BASE_CONFIG, moe_experts=8,
-moe_every=2))``. The reference's sharding rules (``bert_rules``) are not
-carried: the train step is single-device.
+moe_every=2))``. The job carries the reference's rules, ``bert_rules()``
+(tp only: dropped on the port's meshes).
 """
 
 import logging
@@ -24,6 +24,7 @@ from typing import Mapping, Optional
 
 from paddle_operator_tpu_torch.models import bert
 from paddle_operator_tpu_torch.ops import optim
+from paddle_operator_tpu_torch.parallel import sharding
 from paddle_operator_tpu_torch.runner import TrainJob, run_training
 
 
@@ -47,6 +48,7 @@ def make_job(env: Optional[Mapping[str, str]] = None) -> TrainJob:
         make_batch=lambda gen, step: bert.synthetic_batch(
             gen, batch, seq, bert.BASE_CONFIG["vocab_size"]),
         grad_clip=1.0,
+        rules=sharding.bert_rules(),
         total_steps=steps,
         steps_per_call=_int(env, "TPUJOB_STEPS_PER_CALL", 1),
         checkpoint_dir=env.get("TPUJOB_CHECKPOINT_DIR", ""),

@@ -24,10 +24,13 @@ over a ``dp`` mesh. ``TPUJOB_SP > 1`` is the long-context mode, as in
 the reference: the mesh is ``{"dp": -1, "sp": SP}``, each worker holds
 1/SP of every sequence, and attention is causal ring attention over
 ``sp`` (:func:`..parallel.context.ring_attention`: the flash kernels on
-every hop on CUDA), with ``seq_axis="sp"``. MoE under a dp mesh of more
-than one worker, or with ``TPUJOB_SP > 1``, raises (ROADMAP A9). The
-reference's sharding rules (``gpt_rules``, ``moe_rules``) shard over tp
-and ep only, which a dp x sp mesh lacks, so they are not carried.
+every hop on CUDA), with ``seq_axis="sp"``. MoE layers route over the
+global batch under dp and dp x sp. The job carries the reference's rules,
+``gpt_rules() + moe_rules()``: on a mesh with an ``ep`` axis (a caller's
+``mesh_axes``, e.g. ``{"dp": 2, "ep": 2}``, as the reference's tests
+build it; there is no env knob for it) each worker holds its block of
+every MoE layer's experts; the tp rules are dropped on a mesh without
+tp.
 """
 
 import functools
@@ -37,7 +40,7 @@ from typing import Any, Mapping, Optional
 
 from paddle_operator_tpu_torch.models import gpt
 from paddle_operator_tpu_torch.ops import optim
-from paddle_operator_tpu_torch.parallel import context
+from paddle_operator_tpu_torch.parallel import context, sharding
 from paddle_operator_tpu_torch.runner import TrainJob, run_training
 
 
@@ -64,10 +67,6 @@ def make_job(env: Optional[Mapping[str, str]] = None,
         if env.get(knob):
             cfg[key] = int(env[knob])
     experts = _int(env, "TPUJOB_MOE_EXPERTS", 0)
-    if experts and sp > 1:
-        raise NotImplementedError(
-            "MoE under a sequence split of %d ranks: expert capacity and "
-            "expert sharding over the mesh wait for ROADMAP A9" % sp)
     if experts:
         cfg.update(moe_experts=experts, moe_every=2)
     # stream tokens through the LM head (never materialise [B, S, V] fp32
@@ -92,6 +91,7 @@ def make_job(env: Optional[Mapping[str, str]] = None,
             gen, batch, seq, cfg["vocab_size"]),
         mesh_axes={"dp": -1, "sp": sp} if sp > 1 else None,
         seq_axis="sp" if sp > 1 else None,
+        rules=sharding.gpt_rules() + sharding.moe_rules(),
         grad_clip=1.0,
         total_steps=steps,
         steps_per_call=_int(env, "TPUJOB_STEPS_PER_CALL", 1),

@@ -14,8 +14,15 @@ Attention keeps the reference's dispatch: ``encode`` turns an
 ``attention_mask`` into a mask for ``nn.mha``, and a mask takes the einsum
 path, so BERT as :func:`synthetic_batch` feeds it (an all-ones mask) runs
 no attention kernel. With ``moe_experts > 0`` every ``moe_every``-th FFN
-is a switch-MoE block (:mod:`..ops.moe`). ``remat`` recomputes each layer
-in the backward (non-reentrant ``torch.utils.checkpoint``).
+is a switch-MoE block (:mod:`..ops.moe`), routed over the global batch
+across worker processes (:func:`..parallel.collectives.moe_split`, read
+once a forward). ``remat`` recomputes each layer in the backward
+(non-reentrant ``torch.utils.checkpoint``).
+
+Under a mesh the loss's denominator is the global batch's: each rank
+divides its masked sum by the mean of the token group's mask sums, so
+that the ranks' losses averaged over the batch axis are the reference's
+loss on the global batch whatever the mask puts on each rank.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import nn
 from ..ops.moe import moe_apply, moe_init
+from ..parallel import collectives
 
 F32 = torch.float32
 
@@ -82,7 +90,8 @@ def init(generator: torch.Generator, config: Optional[dict] = None) -> Dict:
 
 def _encoder_layer(layer: Dict, x: torch.Tensor,
                    mask: Optional[torch.Tensor], dtype: torch.dtype,
-                   attn_impl: Any = "auto"
+                   attn_impl: Any = "auto",
+                   split: Optional[collectives.Split] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Post-LN encoder layer: ln1(x + attn(x)), then ln2(x + ffn(x)).
     Returns ``(x, aux)``, aux the MoE load-balancing loss (0 for a dense
@@ -91,7 +100,7 @@ def _encoder_layer(layer: Dict, x: torch.Tensor,
     x = nn.layernorm(layer["ln1"], x + y, dtype=dtype)
     aux = torch.zeros((), dtype=F32, device=x.device)
     if "moe" in layer:
-        y, moe_aux = moe_apply(layer["moe"], x, dtype=dtype)
+        y, moe_aux = moe_apply(layer["moe"], x, dtype=dtype, split=split)
         aux = aux + moe_aux["moe_aux_loss"]
     else:
         y = nn.dense(layer["mlp"]["fc1"], x, dtype=dtype)
@@ -126,13 +135,15 @@ def encode(params: Dict, input_ids: torch.Tensor,
         mask = attention_mask[:, None, None, :].bool()
 
     aux = torch.zeros((), dtype=F32, device=input_ids.device)
+    split = collectives.moe_split()
     for layer in params["layers"]:
         if remat:
             x, layer_aux = checkpoint(_encoder_layer, layer, x, mask, dtype,
-                                      attn_impl, use_reentrant=False,
+                                      attn_impl, split, use_reentrant=False,
                                       preserve_rng_state=False)
         else:
-            x, layer_aux = _encoder_layer(layer, x, mask, dtype, attn_impl)
+            x, layer_aux = _encoder_layer(layer, x, mask, dtype, attn_impl,
+                                          split)
         aux = aux + layer_aux
     return x, aux
 
@@ -165,11 +176,22 @@ def loss_fn(params: Dict, batch: Dict, train: bool = True,
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=F32, device=labels.device)
             if mask is None else mask.to(F32))
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    denom = torch.clamp(global_mean(torch.sum(mask)), min=1.0)
     loss = -torch.sum(picked * mask) / denom
     loss = loss + moe_aux_weight * moe_aux
     acc = torch.sum((logits.argmax(dim=-1) == labels).to(F32) * mask) / denom
     return loss, {"accuracy": acc, "moe_aux": moe_aux}
+
+
+def global_mean(count: torch.Tensor) -> torch.Tensor:
+    """``count`` (no gradient) averaged over the token group of the
+    train step's contexts (:func:`..parallel.collectives.batch_group`):
+    the global batch's count over the ranks; ``count`` itself in one
+    process."""
+    group = collectives.batch_group()
+    if collectives.size(group) == 1:
+        return count
+    return collectives.mean_(count.detach().clone(), group)
 
 
 def synthetic_batch(generator: torch.Generator, batch_size: int,

@@ -15,7 +15,11 @@ each block in the backward (``torch.utils.checkpoint``, non-reentrant, so
 With ``moe_experts > 0`` every ``moe_every``-th FFN (layers ``li %
 moe_every == 0``) is a switch-MoE block, ``layers[i].moe.{router, wi,
 wo}`` (:mod:`..ops.moe`); ``encode`` and ``apply`` return the layers'
-load-balancing loss beside their output, as the reference's do.
+load-balancing loss beside their output, as the reference's do. Across
+worker processes the MoE layers route over the global batch and, under
+``ep``, run this rank's experts (:func:`..parallel.collectives.
+moe_split`, read once a forward and handed to every block, since remat's
+recompute runs outside the train step's contexts).
 
 Under a sequence split (the train step's ``seq_axis``: :func:`..parallel.
 collectives.sequence_shards`) :func:`loss_fn` takes this rank's block of
@@ -84,7 +88,8 @@ def init(generator: torch.Generator, config: Optional[dict] = None) -> Dict:
 
 
 def _block(layer: Dict, x: torch.Tensor, dtype: torch.dtype, attn_impl: Any,
-           positions: Optional[torch.Tensor]
+           positions: Optional[torch.Tensor],
+           split: Optional[collectives.Split] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-LN decoder block: x + attn(ln1 x); x + ffn(ln2 x). Returns
     ``(x, aux)``, aux the MoE load-balancing loss (0 for a dense FFN)."""
@@ -96,7 +101,7 @@ def _block(layer: Dict, x: torch.Tensor, dtype: torch.dtype, attn_impl: Any,
     z = nn.layernorm(layer["ln2"], x, dtype=dtype)
     aux = torch.zeros((), dtype=F32, device=x.device)
     if "moe" in layer:
-        z, moe_aux = moe_apply(layer["moe"], z, dtype=dtype)
+        z, moe_aux = moe_apply(layer["moe"], z, dtype=dtype, split=split)
         aux = aux + moe_aux["moe_aux_loss"]
     else:
         z = nn.dense(layer["mlp"]["fc1"], z, dtype=dtype)
@@ -115,13 +120,15 @@ def encode(params: Dict, input_ids: torch.Tensor,
     in fp32)."""
     x = nn.embedding(params["embed"]["tok"], input_ids, dtype)
     aux = torch.zeros((), dtype=F32, device=input_ids.device)
+    split = collectives.moe_split()
     for layer in params["layers"]:
         if remat:
             x, layer_aux = checkpoint(_block, layer, x, dtype, attn_impl,
-                                      positions, use_reentrant=False,
+                                      positions, split, use_reentrant=False,
                                       preserve_rng_state=False)
         else:
-            x, layer_aux = _block(layer, x, dtype, attn_impl, positions)
+            x, layer_aux = _block(layer, x, dtype, attn_impl, positions,
+                                  split)
         aux = aux + layer_aux
     return nn.layernorm(params["final_ln"], x, dtype=dtype), aux
 
@@ -168,11 +175,6 @@ def loss_fn(params: Dict, batch: Dict, train: bool = True,
     index, count = collectives.seq_block()
     positions, denom = None, None
     if count > 1:
-        if any("moe" in layer for layer in params["layers"]):
-            raise NotImplementedError(
-                "MoE under a sequence split of %d ranks: expert capacity "
-                "and expert sharding over the mesh wait for ROADMAP A9"
-                % count)
         if ids.shape[1] % count:
             raise ValueError("seq len %d must divide ring size %d"
                              % (ids.shape[1], count))

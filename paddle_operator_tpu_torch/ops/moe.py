@@ -26,9 +26,29 @@ The reference pads the capacity axis to a multiple of 128 and the tokens
 to its tile, and replicates the routing metadata over 128 lanes: layout
 rules of the TPU. The port's expert buffers are ``[E, capacity, D]``:
 the padded rows are zeros there, give ``gelu(0) = 0`` through the experts
-and are never read, so the function is the same. Expert sharding over an
-``ep`` mesh axis (the reference's ``moe_rules``) is not ported: the train
-step is single-device.
+and are never read, so the function is the same.
+
+Across worker processes (:class:`..parallel.collectives.Split`, set by the
+train step) the layer computes what the reference's GSPMD program
+computes on the global batch. Routing (:func:`_route`) takes the capacity
+from the global token count and each token's position in its expert's
+queue over the global row-major token order: the per-row counts of every
+rank are summed over the token group in one integer all-reduce, and a
+token's position is its rank's offset (the rows before its row, and the
+sequence blocks before its block in that row) plus its count within its
+block. The aux loss is ``E * sum_e fraction_e * share_e`` with the global
+fraction (no gradient) and this rank's share of the mean probability, so
+that the mean over dp of the sum over sp of the ranks' terms is the
+global aux loss, in value and gradient. Under ``moe_rules`` on an ``ep``
+axis a rank holds the experts ``[k E/n, (k+1) E/n)`` of ``wi``/``wo``
+and runs dispatch, its experts and combine on them alone (tokens routed
+elsewhere fall outside the local slots); the ep ranks hold the same
+tokens, so the layer's output is the sum of their combines
+(:func:`..parallel.collectives.sum_forward`), and the dispatched tokens
+and the gate, whose cotangents each rank computes only for its experts'
+tokens, are summed over ep in the backward
+(:func:`..parallel.collectives.sum_backward`). The router and the aux
+loss stay outside both, replicated, so their gradients count once.
 """
 
 from __future__ import annotations
@@ -38,9 +58,11 @@ import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..parallel import collectives
+from ..parallel.collectives import Split
 from . import _kernels, nn
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -60,51 +82,83 @@ def moe_init(generator: torch.Generator, dim: int, mlp_dim: int,
     }
 
 
-def _route(params: Dict, x: torch.Tensor, capacity_factor: float
+def _route(params: Dict, x: torch.Tensor, capacity_factor: float,
+           split: Optional[Split] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int, Dict]:
-    """Shared top-1 routing: ``(gate [T] fp32, choice [T] int64,
-    pos_in_expert [T] int64, capacity, {"moe_aux_loss"})``.
+    """Shared top-1 routing of this rank's tokens ``x [B, S, D]`` over
+    the global batch ``split`` describes (default: this rank alone):
+    ``(gate [T] fp32, choice [T] int64, pos_in_expert [T] int64,
+    capacity, {"moe_aux_loss"})``, ``T = B S``, choice over every expert
+    of the router.
 
     The router runs in fp32 (a caller on the card keeps TF32 off, as
     ``chip_smoke.py`` does: a TF32 router would move near-tied tokens to
     other experts). The gate is differentiable (``max`` passes its
     cotangent to the winning probability); choice and position are
-    integers. Positions are ``cumsum(one_hot) * one_hot - 1`` in int64,
-    exact and deterministic, so a recompute under remat routes every token
-    as the forward did."""
-    ranks = collectives.size(collectives.batch_group())
-    if ranks > 1:
-        # the reference sets capacity from the GLOBAL token count and
-        # shards experts over ep; a rank's own count would route otherwise
-        raise NotImplementedError(
-            "MoE under a dp mesh of %d ranks: expert capacity and expert "
-            "sharding over the mesh wait for ROADMAP A9" % ranks)
+    integers. Capacity is ``max(1, int(cf T_global / E))``; a token's
+    position is the count of tokens before it in the global row-major
+    order that chose its expert (the reference's ``cumsum(one_hot) *
+    one_hot - 1``), exact in int64 and deterministic, so a recompute
+    under remat routes every token as the forward did. Every rank of the
+    token group issues the one all-reduce of the counts."""
+    split = split or Split()
     b, s, _ = x.shape
-    e = params["wi"].shape[0]
-    tokens = b * s
+    e = params["router"]["kernel"].shape[1]
+    blocks, seqs = split.batch_blocks, collectives.size(split.seq)
+    tokens = b * s * blocks * seqs
     capacity = max(1, int(capacity_factor * tokens / e))
 
     logits = torch.einsum("bsd,de->bse", x.float(),
                           params["router"]["kernel"].float())
     probs = torch.softmax(logits, dim=-1)                     # [B, S, E]
     gate, choice = probs.max(dim=-1)
+    onehot = F.one_hot(choice, e)                             # int64
 
-    # load-balancing loss (Switch Transformer): E * sum_e fraction_e * prob_e
-    onehot = F.one_hot(choice, e).float()
-    fraction = onehot.mean(dim=(0, 1))
-    mean_prob = probs.mean(dim=(0, 1))
+    # every rank's count of each expert's tokens, by global row and
+    # sequence block: [rows, blocks, E]
+    table = torch.zeros((blocks * b, seqs, e), dtype=torch.int64,
+                        device=x.device)
+    rows = slice(split.batch_index * b, (split.batch_index + 1) * b)
+    table[rows, split.seq_index] = onehot.sum(dim=1)
+    table = collectives.sum_counts(table, split.batch)
+
+    # load-balancing loss (Switch Transformer): E * sum_e fraction_e *
+    # prob_e, the global fraction times this rank's share of the mean
+    fraction = table.sum(dim=(0, 1)).float() / tokens
+    mean_prob = probs.mean(dim=(0, 1)) / seqs
     aux_loss = e * torch.sum(fraction * mean_prob)
 
     # capacity: position of each token within its expert's queue. The
-    # count runs along the tokens of an [E, T] copy: a scan over the
-    # outer dim of [T, E] (E columns) runs nearly serially on the card
-    flat_choice = choice.reshape(tokens)
-    flat_onehot = F.one_hot(flat_choice, e)                   # int64
-    counts = torch.cumsum(flat_onehot.t().contiguous(), dim=1).t()
-    position = counts * flat_onehot - 1                       # [T, E]
-    pos_in_expert = position.max(dim=-1).values
-    return (gate.reshape(tokens), flat_choice, pos_in_expert, capacity,
-            {"moe_aux_loss": aux_loss})
+    # tokens before this rank's block of a row: the rows before it, and
+    # the blocks before this one in the row
+    row_counts = table.sum(dim=1)                             # [rows, E]
+    before = (torch.cumsum(row_counts, dim=0) - row_counts)[rows] \
+        + (torch.cumsum(table[rows], dim=1) - table[rows])[:, split.seq_index]
+    # the count runs along the tokens of a [B, E, S] copy: a scan over
+    # the outer dim of [S, E] (E columns) runs nearly serially on the card
+    counts = torch.cumsum(onehot.transpose(1, 2).contiguous(),
+                          dim=2).transpose(1, 2)              # [B, S, E]
+    position = (counts + before[:, None, :]) * onehot - 1
+    pos_in_expert = position.max(dim=-1).values.reshape(b * s)
+    return (gate.reshape(b * s), choice.reshape(b * s), pos_in_expert,
+            capacity, {"moe_aux_loss": aux_loss})
+
+
+def _local_experts(params: Dict, split: Split
+                   ) -> Tuple[int, int, collectives.Group]:
+    """``(first, count, group)``: the experts this rank holds (the
+    leading axis of ``wi``/``wo``) and the ep group that holds the rest,
+    ``None`` when it holds them all."""
+    e = params["router"]["kernel"].shape[1]
+    n = params["wi"].shape[0]
+    if n == e:
+        return 0, e, None
+    group = split.expert
+    if collectives.size(group) * n != e:
+        raise ValueError(
+            "this rank holds %d of the router's %d experts, but the expert "
+            "group has %d ranks" % (n, e, collectives.size(group)))
+    return dist.get_rank(group) * n, n, group
 
 
 def _experts(params: Dict, expert_in: torch.Tensor,
@@ -116,37 +170,46 @@ def _experts(params: Dict, expert_in: torch.Tensor,
 
 
 def moe_apply(params: Dict, x: torch.Tensor, capacity_factor: float = 1.25,
-              dtype: torch.dtype = BF16, fused: Optional[bool] = None
-              ) -> Tuple[torch.Tensor, Dict]:
+              dtype: torch.dtype = BF16, fused: Optional[bool] = None,
+              split: Optional[Split] = None) -> Tuple[torch.Tensor, Dict]:
     """x ``[B, S, D]`` -> (``[B, S, D]`` in ``dtype``, {"moe_aux_loss"}).
 
     Top-1 routing; tokens over capacity are dropped (their output row is
     zero; residual connections carry them). ``fused`` selects
     :func:`moe_apply_fused`; ``None`` reads ``TPUJOB_MOE_FUSED=1`` and
     requires :func:`fused_supports`: the dense einsum formulation stays
-    the default."""
-    e = params["wi"].shape[0]
+    the default. ``split`` says how tokens and experts lie over the
+    ranks (default: :func:`..parallel.collectives.moe_split`, read
+    now)."""
+    e = params["router"]["kernel"].shape[1]
+    if split is None:
+        split = collectives.moe_split()
     if fused is None:
         fused = (os.environ.get("TPUJOB_MOE_FUSED", "0") == "1"
                  and fused_supports(x.shape, e, x.device))
     if fused:
         return moe_apply_fused(params, x, capacity_factor=capacity_factor,
-                               dtype=dtype)
+                               dtype=dtype, split=split)
     b, s, d = x.shape
     tokens = b * s
-    gate, choice, pos, capacity, aux = _route(params, x, capacity_factor)
-    keep = pos < capacity
+    gate, choice, pos, capacity, aux = _route(params, x, capacity_factor,
+                                              split)
+    first, n, group = _local_experts(params, split)
+    local = choice - first
+    keep = _kept(local, pos, n, capacity)
 
-    # dense dispatch tensor [T, E, C]
-    dispatch = (F.one_hot(choice, e).float()[:, :, None]
+    # dense dispatch tensor [T, E_local, C]
+    dispatch = (F.one_hot(torch.clamp(local, 0, n - 1), n).float()[:, :, None]
                 * F.one_hot(torch.clamp(pos, 0, capacity - 1),
                             capacity).float()[:, None, :]
                 * keep[:, None, None])
-    xf = x.reshape(tokens, d).to(dtype)
+    xf = collectives.sum_backward(x.reshape(tokens, d).to(dtype), group)
+    gate = collectives.sum_backward(gate, group)
     expert_in = torch.einsum("tec,td->ecd", dispatch.to(dtype), xf)
     expert_out = _experts(params, expert_in, dtype)
     combine = dispatch * gate[:, None, None]
     out = torch.einsum("tec,ecd->td", combine.to(dtype), expert_out)
+    out = collectives.sum_forward(out, group)
     return out.reshape(b, s, d), aux
 
 
@@ -456,21 +519,29 @@ class _Combine(torch.autograd.Function):
 
 
 def moe_apply_fused(params: Dict, x: torch.Tensor,
-                    capacity_factor: float = 1.25, dtype: torch.dtype = BF16
+                    capacity_factor: float = 1.25, dtype: torch.dtype = BF16,
+                    split: Optional[Split] = None
                     ) -> Tuple[torch.Tensor, Dict]:
     """The fused twin of :func:`moe_apply`: the same routing and expert
     MLP, with dispatch and combine as kernels B4a/B4b that never build the
-    ``[T, E, C]`` tensors. Differentiable end to end, router gate
-    included. CUDA tensors launch the kernels (forward and backward, each
-    launch counted in ``moe_apply_fused.launches``); CPU tensors run their
-    plain versions."""
+    ``[T, E, C]`` tensors, over this rank's experts. Differentiable end
+    to end, router gate included. CUDA tensors launch the kernels
+    (forward and backward, each launch counted in
+    ``moe_apply_fused.launches``); CPU tensors run their plain
+    versions."""
+    if split is None:
+        split = collectives.moe_split()
     b, s, d = x.shape
-    e = params["wi"].shape[0]
-    gate, choice, pos, capacity, aux = _route(params, x, capacity_factor)
-    xf = x.reshape(b * s, d).to(dtype)
-    expert_in = _Dispatch.apply(xf, choice, pos, e, capacity)
+    gate, choice, pos, capacity, aux = _route(params, x, capacity_factor,
+                                              split)
+    first, n, group = _local_experts(params, split)
+    local = choice - first
+    xf = collectives.sum_backward(x.reshape(b * s, d).to(dtype), group)
+    gate = collectives.sum_backward(gate, group)
+    expert_in = _Dispatch.apply(xf, local, pos, n, capacity)
     expert_out = _experts(params, expert_in, dtype)
-    out = _Combine.apply(expert_out, gate, choice, pos, capacity, dtype)
+    out = _Combine.apply(expert_out, gate, local, pos, capacity, dtype)
+    out = collectives.sum_forward(out, group)
     return out.reshape(b, s, d), aux
 
 

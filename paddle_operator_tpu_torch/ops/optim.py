@@ -352,10 +352,13 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(tree: Any, max_norm: float):
+def clip_by_global_norm(tree: Any, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
     """Scale every leaf by ``min(1, max_norm / (norm + 1e-6))``; returns
-    (clipped tree, norm)."""
-    norm = global_norm(tree)
+    (clipped tree, norm). ``norm`` defaults to :func:`global_norm` of the
+    tree (a tree holding a shard of the gradients passes the whole's)."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return bridge.tree_map(lambda g: (g.float() * scale).to(g.dtype),
                            tree), norm

@@ -19,7 +19,16 @@ JAX package's dp-sharded train step, written out for
   (one hop around the ring; its backward is the hop the other way) and
   :func:`all_to_all` (the ``tiled=True`` form; its backward is the
   inverse all-to-all); :func:`sequence_shards` sets the group a loss's
-  sequence is split over while the loss runs.
+  sequence is split over while the loss runs;
+* the collectives of expert parallelism: :func:`expert_shards` sets the
+  group a MoE layer's experts are split over, :func:`moe_split` reads
+  the whole layout (the token group and this rank's block of it, the
+  sequence group, the expert group) for ``ops/moe.py``;
+  :func:`sum_forward` (an all-reduce sum whose backward is the identity)
+  and :func:`sum_backward` (the identity whose backward is an all-reduce
+  sum) are the conjugate pair a layer replicated over a group uses
+  around a part each rank computes only a share of; :func:`sum_` and
+  :func:`sum_counts` reduce without a gradient.
 
 Under a sequence axis each rank's loss and gradients are parts of its
 replica's (``shards`` ranks hold the blocks of one sequence), so
@@ -48,7 +57,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -182,17 +191,20 @@ def mean_with_grad(x: torch.Tensor, group: Group) -> torch.Tensor:
 
 
 _BATCH_GROUP: contextvars.ContextVar = contextvars.ContextVar(
-    "batch_group", default=None)
+    "batch_group", default=(None, None))
 
 
 @contextlib.contextmanager
-def sync_batch(group: Group):
-    """While the block runs, :func:`batch_group` is ``group``: the train
-    step sets it around the loss, so that BatchNorm's batch statistics
-    span the global batch. It is read in the forward; the backward's
-    collectives take the group the forward saved (a recompute under
-    remat, in the autograd engine's thread, would not see it)."""
-    token = _BATCH_GROUP.set(group)
+def sync_batch(group: Group, index: Optional[int] = None):
+    """While the block runs, :func:`batch_group` is ``group``, the ranks
+    that hold distinct tokens of the global batch, and ``index`` this
+    rank's block of the batch axis (default: its rank in ``group`` over
+    the sequence blocks, :func:`seq_block`): the train step sets them
+    around the loss, so that BatchNorm's batch statistics and MoE
+    routing span the global batch. They are read in the forward; the
+    backward's collectives take the group the forward saved (a recompute
+    under remat, in the autograd engine's thread, would not see it)."""
+    token = _BATCH_GROUP.set((group, index))
     try:
         yield
     finally:
@@ -202,7 +214,7 @@ def sync_batch(group: Group):
 def batch_group() -> Group:
     """The group the batch is split over, inside :func:`sync_batch`
     (``None`` outside it and without a mesh)."""
-    return _BATCH_GROUP.get()
+    return _BATCH_GROUP.get()[0]
 
 
 def _scalar_device(group: Group) -> torch.device:
@@ -388,3 +400,140 @@ def seq_block() -> tuple:
     if _alone(group):
         return 0, 1
     return dist.get_rank(group), dist.get_world_size(group)
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism
+# ---------------------------------------------------------------------------
+
+_EXPERT_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "expert_group", default=None)
+
+
+@contextlib.contextmanager
+def expert_shards(group: Group):
+    """While the block runs, a MoE layer's experts are split over
+    ``group`` (the ep ranks, which hold the same tokens): the train step
+    sets it around the loss under an ep axis."""
+    token = _EXPERT_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _EXPERT_GROUP.reset(token)
+
+
+class Split(NamedTuple):
+    """How a MoE layer's tokens and experts lie over the ranks, read in
+    the forward and handed to every layer (remat's recompute reruns a
+    layer in the autograd engine's thread, where the contexts are not
+    set): ``batch`` the ranks holding distinct tokens, ``batch_index``
+    this rank's block of the batch axis among them, ``seq`` the ranks
+    holding blocks of the same sequences (``seq_index`` this rank's),
+    ``expert`` the ranks holding the same tokens and splitting the
+    experts."""
+
+    batch: Group = None
+    batch_index: int = 0
+    seq: Group = None
+    seq_index: int = 0
+    expert: Group = None
+
+    @property
+    def batch_blocks(self) -> int:
+        """Blocks of the batch axis: the token group over the sequence
+        blocks."""
+        return size(self.batch) // size(self.seq)
+
+
+def moe_split() -> Split:
+    """The :class:`Split` the contexts of :func:`sync_batch`,
+    :func:`sequence_shards` and :func:`expert_shards` describe (every
+    field empty outside them)."""
+    group, index = _BATCH_GROUP.get()
+    seq_index, seqs = seq_block()
+    if _alone(group):
+        group, index = None, 0
+    elif index is None:
+        index = dist.get_rank(group) // seqs
+    expert = _EXPERT_GROUP.get()
+    return Split(group, index, None if seqs == 1 else _SEQ_GROUP.get(),
+                 seq_index, None if _alone(expert) else expert)
+
+
+def sum_(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """``t`` summed over ``group`` in place; returns ``t``."""
+    if not _alone(group):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+#: the MoE collectives since the last reset: the routing counts' sums, the
+#: ep sums of the forward and of the backward, their bytes and host seconds
+moe_traffic = {"routing": 0, "sum_forward": 0, "sum_backward": 0,
+               "bytes": 0, "seconds": 0.0}
+
+
+def _timed_sum(kind: str, t: torch.Tensor, group: Group) -> torch.Tensor:
+    t0 = time.perf_counter()
+    sum_(t, group)
+    moe_traffic[kind] += 1
+    moe_traffic["bytes"] += t.numel() * t.element_size()
+    moe_traffic["seconds"] += time.perf_counter() - t0
+    return t
+
+
+def sum_counts(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """MoE routing's integer counts summed over ``group`` (a new tensor
+    on ``t``'s device; reduced where ``group``'s backend reduces
+    integers), counted in :data:`moe_traffic`."""
+    if _alone(group):
+        return t
+    dev = t.device if _on_nccl(group) and t.device.type == "cuda" \
+        else _scalar_device(group)
+    return _timed_sum("routing", t.to(dev, copy=True), group).to(t.device)
+
+
+class _SumForward(torch.autograd.Function):
+    """An all-reduce sum over the group; the backward passes the
+    cotangent on as it is (each rank already holds the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Group) -> torch.Tensor:
+        return _timed_sum("sum_forward", x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """The identity; the backward sums the cotangent over the group
+    (each rank computed the part of it its share reaches)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _timed_sum("sum_backward",
+                          grad.contiguous().clone(), ctx.group), None
+
+
+def sum_forward(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` summed over ``group``, with the identity as its backward:
+    the output of a part each rank computes a share of, consumed by a
+    replicated rest. The identity for a group of one."""
+    if _alone(group):
+        return x
+    return _SumForward.apply(x, group)
+
+
+def sum_backward(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` as it is, with a sum over ``group`` as its backward: a
+    replicated input of a part each rank computes a share of. The
+    identity for a group of one."""
+    if _alone(group):
+        return x
+    return _SumBackward.apply(x, group)

@@ -2,9 +2,9 @@
 ``make_mesh`` and ``mesh_from_env``, over processes.
 
 The port runs one process per card, so a mesh axis spans processes of
-the ``torch.distributed`` world. ``dp`` and ``sp`` are ported: an axis of
-any other name with a size above 1 raises (ROADMAP A9 holds tp, fsdp, ep
-and pipeline meshes).
+the ``torch.distributed`` world. ``dp``, ``sp`` and ``ep`` are ported: an
+axis of any other name with a size above 1 raises (ROADMAP A9 holds tp,
+fsdp and pipeline meshes).
 
 Ranks are laid out as the reference lays out devices: row-major over the
 axes in dict order, so with ``{"dp": 2, "sp": 2}`` (dp outermost, sp
@@ -13,10 +13,14 @@ world group (``group``: the gradient and metric reductions, sync
 BatchNorm, the checkpoint) and, for every axis, the process group of the
 ranks that differ from this one only along it (:meth:`Mesh.axis_group`):
 the ring and the all-to-alls of sequence parallelism run on the sp
-group, the batch split takes the dp coordinate. An axis that spans the
-whole world uses the world group itself, one of size 1 none. A process
-that never joined a group (one worker) gets a mesh with no group, whose
-collectives are the identity.
+group, the batch split takes the dp coordinate, the ep group sums a MoE
+layer's local experts. :meth:`Mesh.group_over` gives the group of the
+ranks that differ from this one only along several axes: the ranks that
+hold distinct tokens (every axis but ep) or that hold the same expert
+shard (the same). An axis set that spans the whole world uses the world
+group itself, one of size 1 none. A process that never joined a group
+(one worker) gets a mesh with no group, whose collectives are the
+identity.
 
 The runner's control collectives (the agreed drain poll, the checkpoint
 barriers, the agreed restore) run on ``Mesh.control``: the group itself
@@ -30,12 +34,12 @@ import itertools
 import math
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch.distributed as dist
 
 #: the mesh axes the port has ported
-PORTED_AXES = ("dp", "sp")
+PORTED_AXES = ("dp", "sp", "ep")
 
 
 @dataclass(frozen=True)
@@ -51,6 +55,10 @@ class Mesh:
     group: Optional[dist.ProcessGroup] = None
     control: Optional[dist.ProcessGroup] = None
     groups: Dict[str, Optional[dist.ProcessGroup]] = field(
+        default_factory=dict)
+    # the groups along several axes, by the frozenset of their names
+    # (axes of size 1 left out)
+    multi: Dict[frozenset, Optional[dist.ProcessGroup]] = field(
         default_factory=dict)
 
     @property
@@ -82,37 +90,70 @@ class Mesh:
         along ``name`` (``None`` for an axis of size 1)."""
         return self.groups.get(name)
 
+    def group_over(self, names) -> Optional[dist.ProcessGroup]:
+        """The process group of the ranks that share every coordinate
+        with this one except those along ``names`` (axes the mesh lacks,
+        or of size 1, change nothing): ``None`` when that is this rank
+        alone, the world group when it is every rank."""
+        live = frozenset(n for n in names if self.axis_size(n) > 1)
+        if not live:
+            return None
+        if len(live) == 1:
+            return self.groups.get(next(iter(live)))
+        if math.prod(self.shape[n] for n in live) == self.size:
+            return self.group
+        return self.multi.get(live)
+
 
 def world_size() -> int:
     """Processes in the ``torch.distributed`` world (1 without a group)."""
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def _axis_groups(axes: Dict[str, int], rank: int, world_group
-                 ) -> Dict[str, Optional[dist.ProcessGroup]]:
-    """This rank's group along each axis. ``new_group`` is collective
-    over the world: every rank creates every subgroup, in one order (axis
-    by axis, then by the other axes' coordinates), and keeps the one it
-    belongs to."""
-    names, sizes = list(axes), list(axes.values())
+def _group_along(axes: Dict[str, int], along: Tuple[int, ...], rank: int
+                 ) -> dist.ProcessGroup:
+    """This rank's group of the ranks that differ from it only along the
+    axes at indices ``along``. ``new_group`` is collective over the
+    world: every rank creates every such subgroup, in one order (by the
+    other axes' coordinates), and keeps the one it belongs to."""
+    sizes = list(axes.values())
     strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+    others = [range(s) if j not in along else range(1)
+              for j, s in enumerate(sizes)]
+    inner = [range(sizes[j]) for j in along]
+    mine = None
+    for base in itertools.product(*others):
+        start = sum(c * st for c, st in zip(base, strides))
+        ranks = [start + sum(c * strides[j] for c, j in zip(cs, along))
+                 for cs in itertools.product(*inner)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
+
+
+def _axis_groups(axes: Dict[str, int], rank: int, world_group
+                 ) -> Tuple[Dict[str, Optional[dist.ProcessGroup]],
+                            Dict[frozenset, Optional[dist.ProcessGroup]]]:
+    """This rank's group along each axis, then along each set of two or
+    more axes of size above 1 that is not the whole world (axis by axis,
+    then set by set in a fixed order, the same on every rank)."""
+    names, sizes = list(axes), list(axes.values())
     out: Dict[str, Optional[dist.ProcessGroup]] = {}
     for i, name in enumerate(names):
         if sizes[i] == 1:
             out[name] = None
-            continue
-        if sizes[i] == math.prod(sizes):
+        elif sizes[i] == math.prod(sizes):
             out[name] = world_group
-            continue
-        others = [range(s) if j != i else range(1)
-                  for j, s in enumerate(sizes)]
-        for base in itertools.product(*others):
-            start = sum(c * st for c, st in zip(base, strides))
-            ranks = [start + k * strides[i] for k in range(sizes[i])]
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                out[name] = group
-    return out
+        else:
+            out[name] = _group_along(axes, (i,), rank)
+    live = [i for i, s in enumerate(sizes) if s > 1]
+    multi: Dict[frozenset, Optional[dist.ProcessGroup]] = {}
+    for k in range(2, len(live)):
+        for along in itertools.combinations(live, k):
+            multi[frozenset(names[i] for i in along)] = _group_along(
+                axes, along, rank)
+    return out, multi
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None,
@@ -145,8 +186,8 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     for name, size in axes.items():
         if name not in PORTED_AXES and size > 1:
             raise NotImplementedError(
-                "mesh axis %r of size %d: the port shards over dp and sp "
-                "only; tp, fsdp, ep and pipeline meshes wait for ROADMAP A9"
+                "mesh axis %r of size %d: the port shards over dp, sp and "
+                "ep only; tp, fsdp and pipeline meshes wait for ROADMAP A9"
                 % (name, size))
     if not dist.is_initialized():
         return Mesh(axes)
@@ -154,8 +195,8 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     control = group
     if dist.get_backend(group) == "nccl" and n > 1:
         control = dist.new_group(backend="gloo")
-    return Mesh(axes, group, control,
-                _axis_groups(axes, dist.get_rank(group), group))
+    groups, multi = _axis_groups(axes, dist.get_rank(group), group)
+    return Mesh(axes, group, control, groups, multi)
 
 
 def mesh_from_env(world: Optional[int] = None) -> Mesh:

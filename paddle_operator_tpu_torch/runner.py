@@ -4,10 +4,13 @@ over the processes of a ``torch.distributed`` world (one card each).
 
 It joins the world the operator's env describes
 (:func:`.launch.initialize_distributed`), builds a mesh when
-``mesh_axes`` is set (dp, or dp x sp with ``seq_axis``) or the world has
-more than one process (all on dp) (:mod:`.parallel.mesh`), hands it to a
-``loss_fn`` that declares a ``mesh`` keyword (the hook ring and Ulysses
-attention plug into), builds the train step (:mod:`.parallel.train`),
+``mesh_axes`` is set (dp, dp x sp with ``seq_axis``, dp x ep with the
+job's ``rules``) or the world has more than one process (all on dp)
+(:mod:`.parallel.mesh`), hands it to a ``loss_fn`` that declares a
+``mesh`` keyword (the hook ring and Ulysses attention plug into), builds
+the train step with the job's sharding ``rules`` (:mod:`.parallel.train`:
+under an ep axis each rank holds its block of the expert leaves, and
+saves and restores it as its tile of the whole leaf),
 resumes from the newest valid checkpoint (:func:`.utils.checkpoint.
 restore_latest`, agreed between the ranks), feeds prestaged batches or
 ``[K, ...]`` windows from a background producer (:class:`.data.
@@ -150,6 +153,10 @@ class TrainJob:
     # the mesh axis the sequence is split over (e.g. "sp"): the loss takes
     # this rank's block of each sequence (parallel.train)
     seq_axis: Optional[str] = None
+    # sharding rules, (regex, spec) pairs (parallel.sharding): rules over
+    # ep split the expert leaves on a mesh with an ep axis; axes the mesh
+    # lacks are dropped
+    rules: Optional[list] = None
     # input contract under dp: False = make_batch returns the GLOBAL
     # batch, the same on every rank, and each rank keeps its dp block;
     # True = make_batch returns only this rank's dp block
@@ -284,7 +291,8 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
         on the background thread."""
         if multi:
             save_checkpoint_sharded(job.checkpoint_dir, step, state,
-                                    meta={"epoch": epoch}, group=mesh.control)
+                                    meta={"epoch": epoch}, group=mesh.control,
+                                    tiles=tiles)
         elif cfg.worker_id == 0:
             writer.save(job.checkpoint_dir, step, state,
                         meta={"epoch": epoch})
@@ -310,11 +318,18 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
     loss_fn = bind_mesh(job.loss_fn, mesh)
     # the loader hands each rank its block, so the step takes it as is
     build = dict(merge_stats=job.merge_stats, grad_clip=job.grad_clip,
-                 accum_steps=job.accum_steps, mesh=mesh,
+                 accum_steps=job.accum_steps, mesh=mesh, rules=job.rules,
                  seq_axis=job.seq_axis, host_local_batches=True)
     step_fn, state = build_train_step(loss_fn, job.optimizer, params,
                                       sample, steps_per_call=K, **build)
     del params
+    # this rank's tiles of the leaves split over ep: it writes them (the
+    # replica with every other coordinate 0) and restores them
+    layout = step_fn.expert_layout
+    tiles = None
+    if layout:
+        tiles = {"layout": layout, "writer": not any(
+            c for a, c in mesh.coords().items() if a != "ep")}
     single_fn = None   # for a tail shorter than K, built on first use
     stages["build_s"] = time.perf_counter() - t
 
@@ -328,7 +343,7 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
         except FileNotFoundError:
             manifest = None   # fresh run (or nothing valid survived)
         if manifest is not None:
-            load_into(state, restored)
+            load_into(state, restored, layout)
             start_step = int(manifest["step"])
             result.setdefault("resume_steps", []).append(start_step)
             log.info("restored checkpoint step=%d (epoch %s)", start_step,

@@ -16,11 +16,16 @@ checkpoints.
 Sharded format (:func:`save_checkpoint_sharded`, the multi-process one):
 ``step_N/<path>.sNN.npy`` per shard, ``shards.json`` indexing each
 shard's slices of the global array with its CRC32, and the manifest
-(``"format": "sharded"``). The port's states are replicated over ``dp``,
-so each leaf is one shard, written by rank 0 (replica 0); every rank
-writes its part of the index, and rank 0 merges them and publishes the
-step, between the reference's four barriers. Readers assemble any tiling
-the JAX package wrote (:func:`restore_checkpoint`).
+(``"format": "sharded"``). A leaf replicated over the mesh is one shard,
+written by rank 0 (replica 0); a leaf split over ``ep`` (the expert
+weights and their optimizer state) is one tile an ep index, each written
+by the first replica of its shard with its offset in the whole leaf, as
+the reference's per-host tiles are. Every rank writes its part of the
+index, and rank 0 merges them and publishes the step, between the
+reference's four barriers. Readers assemble any tiling (the port's or
+the JAX package's) into whole leaves (:func:`restore_checkpoint`), and
+:func:`load_into` cuts a rank's block from each for the mesh it restores
+into.
 """
 
 from __future__ import annotations
@@ -366,14 +371,23 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
 
 def save_checkpoint_sharded(ckpt_dir: str, step: int, state: Any,
                             meta: Optional[dict] = None, keep: int = 3,
-                            group: collectives.Group = None) -> str:
+                            group: collectives.Group = None,
+                            tiles: Optional[Dict[str, Any]] = None) -> str:
     """Write ``state``, replicated on every rank of ``group`` (``None``:
     one process), in the sharded format: rank 0 writes each leaf as one
     full-extent shard ``<path>.s0.npy``, every rank writes its index part,
     rank 0 merges the parts, writes ``shards.json`` and the manifest in
     the staging directory and renames it into place. Every rank calls
     this at the same step; barriers as the reference's (staging clean,
-    shards written, index parts written, step published)."""
+    shards written, index parts written, step published).
+
+    ``tiles``: ``{"layout": {path: (index, count)}, "writer": bool}`` for
+    a state whose ``layout`` leaves hold block ``index`` of ``count`` of
+    their leading axis (``parallel.train.expert_layout``): each such
+    leaf's block is written as ``<path>.s<index>.npy`` with its offset,
+    by the ranks whose ``writer`` is set (one for each index)."""
+    layout = (tiles or {}).get("layout") or {}
+    writes_tile = bool((tiles or {}).get("writer"))
     rank = dist.get_rank(group) if group is not None else 0
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
@@ -391,12 +405,16 @@ def save_checkpoint_sharded(ckpt_dir: str, step: int, state: Any,
         dtype = str(torch.empty(0, dtype=leaf.dtype).numpy().dtype
                     if isinstance(leaf, torch.Tensor) else leaf.dtype)
         entries = []
-        if rank == 0:
+        tile, count = layout.get(path, (0, 1))
+        writes = writes_tile if path in layout else rank == 0
+        slices = [[tile * shape[0], (tile + 1) * shape[0]]] + [
+            [0, dim] for dim in shape[1:]] if shape else []
+        shape = (shape[0] * count,) + shape[1:] if shape else shape
+        if writes:
             host = _owned_host(leaf)
-            fname = "%s.s0.npy" % path.replace("/", "__")
+            fname = "%s.s%d.npy" % (path.replace("/", "__"), tile)
             np.save(os.path.join(staging, fname), host)
-            entries.append({"file": fname,
-                            "slices": [[0, dim] for dim in shape],
+            entries.append({"file": fname, "slices": slices,
                             "crc32": _leaf_crc(host)})
         index[path] = {"shape": list(shape), "dtype": dtype,
                        "shards": entries}
@@ -562,9 +580,14 @@ def restore_latest(ckpt_dir: str,
             collectives.barrier(group)
 
 
-def load_into(state: Any, restored: Any) -> Any:
+def load_into(state: Any, restored: Any,
+              layout: Optional[Dict[str, Tuple[int, int]]] = None) -> Any:
     """Copy a restored numpy tree into a live torch state tree in place,
-    leaf by leaf; names, shapes and dtypes must match. Returns ``state``."""
+    leaf by leaf; names, shapes and dtypes must match, after a leaf in
+    ``layout`` (``{path: (index, count)}``, ``parallel.train.
+    expert_layout``) is cut to block ``index`` of ``count`` of its
+    leading axis. Returns ``state``."""
+    layout = layout or {}
     live = bridge.flatten(state)
     got = bridge.flatten(restored)
     if set(live) != set(got):
@@ -574,6 +597,10 @@ def load_into(state: Any, restored: Any) -> Any:
     with torch.no_grad():
         for name, t in live.items():
             src = torch.from_numpy(np.asarray(got[name]))
+            if name in layout:
+                index, count = layout[name]
+                n = src.shape[0] // count
+                src = src[index * n:(index + 1) * n]
             if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype:
                 raise ValueError(
                     "checkpoint leaf %r is %s %s, the state's is %s %s"

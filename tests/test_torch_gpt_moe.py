@@ -200,8 +200,14 @@ def test_make_job_builds_moe_on_even_layers():
     batch = job.make_batch(torch.Generator().manual_seed(1), 0)
     loss, aux = job.loss_fn(bridge.tree_map(lambda t: t, params), batch)
     assert np.isfinite(float(loss)) and float(aux["moe_aux"]) > 0.0
-    with pytest.raises(NotImplementedError):
-        train_gpt.make_job(dict(env, TPUJOB_SP="2"))
+    # MoE under a sequence split builds the dp x sp job with the
+    # reference's rules (the MoE layers route over the global batch)
+    sp = train_gpt.make_job(dict(env, TPUJOB_SP="2"))
+    assert sp.mesh_axes == {"dp": -1, "sp": 2} and sp.seq_axis == "sp"
+    assert sp.rules == job.rules and (r"moe/w(i|o)$", ("ep", None, None)) \
+        in sp.rules
+    assert "moe" in sp.init_params(torch.Generator().manual_seed(0))[
+        "layers"][0]
 
 
 def test_moe_state_round_trips_through_both_checkpoint_packages(tmp_path,

@@ -346,7 +346,7 @@ def test_make_mesh_takes_sp_and_refuses_the_rest(monkeypatch):
     from paddle_operator_tpu_torch.parallel.mesh import PORTED_AXES, \
         make_mesh, mesh_from_env
 
-    assert PORTED_AXES == ("dp", "sp")
+    assert PORTED_AXES == ("dp", "sp", "ep")
     mesh = make_mesh({"dp": -1, "sp": 2}, world=4)
     assert mesh.shape == {"dp": 2, "sp": 2} and mesh.size == 4
     assert mesh.axis_size("sp") == 2 and mesh.axis_size("tp") == 1
@@ -354,16 +354,22 @@ def test_make_mesh_takes_sp_and_refuses_the_rest(monkeypatch):
         is None
     assert dict(jmesh.make_mesh({"dp": -1, "sp": 2},
                                 jax.devices()[:4]).shape) == mesh.shape
-    for axis in ("tp", "fsdp", "ep"):
+    for axis in ("tp", "fsdp"):
         with pytest.raises(NotImplementedError, match="A9"):
             make_mesh({"dp": 2, axis: 2}, world=4)
+    # ep builds (expert parallelism), laid out as the reference's mesh
+    ep = make_mesh({"dp": 2, "ep": 2}, world=4)
+    assert ep.shape == dict(jmesh.make_mesh({"dp": 2, "ep": 2},
+                                            jax.devices()[:4]).shape)
+    assert ep.axis_size("ep") == 2 and ep.coords() == {"dp": 0, "ep": 0}
+    assert ep.group_over(["dp", "sp"]) is None and ep.group is None
     monkeypatch.setenv("TPUJOB_MESH", "dp=2,sp=2")
     assert mesh_from_env(world=4).shape == {"dp": 2, "sp": 2}
 
 
 def test_make_job_builds_the_sp_job():
     """TPUJOB_SP > 1: the sp mesh, seq_axis and ring attention in the
-    loss; MoE under sp raises naming A9."""
+    loss; with MoE too (the MoE layers route over the global batch)."""
     env = dict(RUN_ENV, TPUJOB_SP="4")
     job = train_gpt.make_job(env)
     assert job.mesh_axes == {"dp": -1, "sp": 4} and job.seq_axis == "sp"
@@ -388,23 +394,40 @@ def test_make_job_builds_the_sp_job():
     finally:
         context.ring_attention = orig
     assert seen == [(mesh, "sp", True)] * 2
-    with pytest.raises(NotImplementedError, match="A9"):
-        train_gpt.make_job(dict(env, TPUJOB_MOE_EXPERTS="4"))
+    moe = train_gpt.make_job(dict(env, TPUJOB_MOE_EXPERTS="4"))
+    assert moe.mesh_axes == {"dp": -1, "sp": 4} and moe.seq_axis == "sp"
+    layers = moe.init_params(torch.Generator().manual_seed(0))["layers"]
+    assert "moe" in layers[0] and "mlp" in layers[1]
 
 
 def test_moe_under_a_sequence_split_raises():
+    """MoE under a sequence split no longer raises: block 0 of two runs
+    its MoE layer on its half of the sequence at its global positions
+    (the routing over the sp group's blocks is held against JAX in
+    ``tests/test_torch_moe_ep.py``)."""
+    from paddle_operator_tpu_torch.ops import moe as tmoe
     from paddle_operator_tpu_torch.parallel import collectives
 
     gen = torch.Generator().manual_seed(0)
     params = tgpt.init(gen, dict(tgpt.TINY_MOE_CONFIG, layers=1))
     batch = {"input_ids": torch.randint(0, 1024, (2, 64), generator=gen)}
+    shapes = []
+    route = tmoe._route
+
+    def seen(p, x, *a):
+        shapes.append(tuple(x.shape))
+        return route(p, x, *a)
+
     orig = collectives.seq_block
     collectives.seq_block = lambda: (0, 2)
+    tmoe._route = seen
     try:
-        with pytest.raises(NotImplementedError, match="A9"):
-            tgpt.loss_fn(params, batch, dtype=torch.float32)
+        loss, aux = tgpt.loss_fn(params, batch, dtype=torch.float32)
     finally:
         collectives.seq_block = orig
+        tmoe._route = route
+    assert np.isfinite(float(loss)) and float(aux["moe_aux"]) > 0.0
+    assert shapes == [(2, 32, 128)]
 
 
 def test_bind_mesh_follows_the_signature():
