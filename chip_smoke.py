@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the ten ported paths:
+path. Then it drives the eleven ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -59,6 +59,18 @@ path. Then it drives the ten ported paths:
   experts), TPUJOB_SP=2 at 2 layers (routing over sequence blocks), each
   against one process, and three planted faults; gates in
   ``phase_train_moe_ep``.
+* train_migrate: the live-migration MOVE over the port's artifact server
+  run here (HTTP only): phase train's ResNet-50 job drains at step 13 on
+  the operator's notice (``TPUJOB_MIGRATE_FILE``) and publishes its cut
+  as a state bundle; a fresh process (``migrate_check``, with
+  ``TPUJOB_MIGRATE_STATE``) pre-stages it, restores step 13 and trains to
+  30, bit for bit as phase train did, B1 on every step of both sides.
+  Four planted faults must each make their gate fire: a torn notice
+  (nothing published), an unpublished step and a poisoned bundle (the
+  server quarantines it; both fall back to step 0), and a stale cut (the
+  step-10 dir under step 13's key: the bitwise loss gate fails). It
+  prints the bundle's bytes, the publish, pre-stage and restore seconds
+  and the blackout by part; gates in ``phase_train_migrate``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -86,8 +98,13 @@ import numpy as np
 import torch
 
 from paddle_operator_tpu_torch import bridge, dp_check, elastic_check, \
-    moe_check, ps, ps_check, testing
+    migrate_check, moe_check, ps, ps_check, testing
+from paddle_operator_tpu_torch.artifacts.server import ArtifactServer
+from paddle_operator_tpu_torch.artifacts.state import pack_state_dir, \
+    state_fingerprint
+from paddle_operator_tpu_torch.artifacts.store import ArtifactStore
 from paddle_operator_tpu_torch.data import process_shard, step_generator
+from paddle_operator_tpu_torch.migrate_check import resnet_optimizer
 from paddle_operator_tpu_torch.moe_check import rel_diffs
 from paddle_operator_tpu_torch.elastic.server import MembershipServer
 from paddle_operator_tpu_torch.examples import train_bert, train_deepfm, \
@@ -1025,13 +1042,12 @@ class _StepRecorder:
 def _train_run(opt, total: int, ckpt_dir: str, make_batch=None,
                **job_kw):
     rec = _StepRecorder()
-    job = TrainJob(
-        init_params=lambda gen: resnet.init(gen, DEPTH, CLASSES),
-        loss_fn=rec.loss_fn, optimizer=rec.wrap(opt),
-        make_batch=make_batch or (lambda gen, step: resnet.synthetic_batch(
-            gen, BATCH, IMAGE, CLASSES)),
-        merge_stats=resnet.merge_stats, total_steps=total, log_every=10,
-        checkpoint_every=10, checkpoint_dir=ckpt_dir, seed=0, device=DEVICE,
+    job = dataclasses.replace(
+        migrate_check.resnet_job(
+            dict(depth=DEPTH, classes=CLASSES, image=IMAGE, batch=BATCH,
+                 steps=total, device=DEVICE),
+            optimizer=rec.wrap(opt), make_batch=make_batch),
+        loss_fn=rec.loss_fn, checkpoint_every=10, checkpoint_dir=ckpt_dir,
         **job_kw)
     t0 = time.perf_counter()
     out = run_training(job)
@@ -1039,11 +1055,6 @@ def _train_run(opt, total: int, ckpt_dir: str, make_batch=None,
     rec.end.record()    # after the last step and the final checkpoint drain
     torch.cuda.synchronize()
     return rec, out, time.perf_counter() - t0
-
-
-def _sgd_opts(kind: str, total: int = 30):
-    sched = optim.cosine_schedule(0.4, total, max(1, total // 20))
-    return getattr(optim, kind)(sched, momentum=0.9, weight_decay=1e-4)
 
 
 def _train_profile(warm: int = 2, steps: int = 5) -> dict:
@@ -1055,8 +1066,8 @@ def _train_profile(warm: int = 2, steps: int = 5) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     batch = resnet.synthetic_batch(gen, BATCH, IMAGE, CLASSES)
     step_fn, state = build_train_step(
-        resnet.loss_fn, _sgd_opts("fused_sgd"), resnet.init(gen, DEPTH,
-                                                            CLASSES),
+        resnet.loss_fn, resnet_optimizer("fused_sgd", 30),
+        resnet.init(gen, DEPTH, CLASSES),
         batch, merge_stats=resnet.merge_stats)
     for _ in range(warm):
         step_fn(state, batch)
@@ -1092,23 +1103,25 @@ def phase_train(smi: str) -> dict:
         dirs = {k: os.path.join(tmp, k) for k in "abc"}
         optim.multi_tensor_sgd.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        rec_a, out_a, wall_a = _train_run(_sgd_opts("fused_sgd"), 30,
-                                          dirs["a"])
+        rec_a, out_a, wall_a = _train_run(
+            resnet_optimizer("fused_sgd", 30), 30, dirs["a"])
         launches_a = optim.multi_tensor_sgd.launches
         peak = torch.cuda.max_memory_allocated()
         optim.multi_tensor_sgd.launches = 0
-        rec_b, out_b, wall_b = _train_run(_sgd_opts("sgd"), 30, dirs["b"])
+        rec_b, out_b, wall_b = _train_run(resnet_optimizer("sgd", 30), 30,
+                                          dirs["b"])
         launches_b = optim.multi_tensor_sgd.launches
         os.makedirs(dirs["c"])
         shutil.copytree(os.path.join(dirs["a"], "step_%012d" % 10),
                         os.path.join(dirs["c"], "step_%012d" % 10))
         optim.multi_tensor_sgd.launches = 0
-        rec_c, out_c, _ = _train_run(_sgd_opts("fused_sgd"), 30, dirs["c"])
+        rec_c, out_c, _ = _train_run(resnet_optimizer("fused_sgd", 30), 30,
+                                     dirs["c"])
         launches_c = optim.multi_tensor_sgd.launches
         fixed = resnet.synthetic_batch(
             torch.Generator(device=DEVICE).manual_seed(1), BATCH, IMAGE,
             CLASSES)
-        rec_f, _, _ = _train_run(_sgd_opts("fused_sgd", 20), 20, "",
+        rec_f, _, _ = _train_run(resnet_optimizer("fused_sgd", 20), 20, "",
                                  make_batch=lambda gen, step: fixed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2430,7 +2443,11 @@ def _dp_collectives_per_step(params) -> dict:
 def _nccl_profile(mesh, warm: int = 2, steps: int = 5) -> dict:
     """torch.profiler over ``steps`` dp train steps (fused_sgd, one fixed
     batch) on ``mesh``: NCCL kernels a step, their device ms, and the
-    device busy ms a step (union of kernel intervals)."""
+    device busy ms a step (union of kernel intervals). To place a kernel
+    the count misses: the NCCL kernels between B1 launches (a step ends
+    with B1 and then the metrics mean, so a sound window reads
+    ``[total - 1, total, ..., total, 1]``) and the host's ``nccl:*``
+    records of the collectives it issued."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2439,8 +2456,8 @@ def _nccl_profile(mesh, warm: int = 2, steps: int = 5) -> dict:
     params = resnet.init(gen, DEPTH, CLASSES)
     expected = _dp_collectives_per_step(params)
     step_fn, state = build_train_step(
-        resnet.loss_fn, _sgd_opts("fused_sgd"), params, batch, mesh=mesh,
-        merge_stats=resnet.merge_stats)
+        resnet.loss_fn, resnet_optimizer("fused_sgd", 30), params, batch,
+        mesh=mesh, merge_stats=resnet.merge_stats)
     del params
     for _ in range(warm):
         step_fn(state, batch)
@@ -2455,14 +2472,23 @@ def _nccl_profile(mesh, warm: int = 2, steps: int = 5) -> dict:
                    if e.device_type == DeviceType.CUDA
                    and not e.name.startswith("nccl:"))
     busy, end, nccl_n, nccl_us = 0.0, float("-inf"), 0, 0.0
+    between_b1 = [0]
     for lo, hi, name in spans:
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
         if any(mark in name for mark in NCCL_KERNEL_MARKS):
             nccl_n += 1
             nccl_us += hi - lo
+            between_b1[-1] += 1
+        elif "fused_sgd" in name:
+            between_b1.append(0)
     return {"expected_collectives_per_step": expected,
             "nccl_kernels_per_step": nccl_n / steps,
+            "nccl_kernels_between_b1": between_b1,
+            "host_nccl_records": sum(
+                1 for e in prof.events()
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("nccl:")),
             "nccl_kernel_names": sorted({n[:90] for _, _, n in spans
                                          if any(m in n for m in
                                                 NCCL_KERNEL_MARKS)}),
@@ -2602,7 +2628,8 @@ def phase_train_dp(smi: str, train_losses: list) -> dict:
         try:
             optim.multi_tensor_sgd.launches = 0
             rec_a, out_a, wall_a = _train_run(
-                _sgd_opts("fused_sgd"), 30, "", mesh_axes={"dp": 1})
+                resnet_optimizer("fused_sgd", 30), 30, "",
+                mesh_axes={"dp": 1})
             launches_a = optim.multi_tensor_sgd.launches
             nccl = _nccl_profile(make_mesh({"dp": 1}))
         finally:
@@ -2663,9 +2690,12 @@ def phase_train_dp(smi: str, train_losses: list) -> dict:
                         % launches_a)
     if nccl["nccl_kernels_per_step"] != nccl[
             "expected_collectives_per_step"]["total"]:
-        problems.append("%.2f NCCL kernels a step, expected %d"
+        problems.append("%.2f NCCL kernels a step, expected %d (between "
+                        "B1 launches %r; %d host records)"
                         % (nccl["nccl_kernels_per_step"],
-                           nccl["expected_collectives_per_step"]["total"]))
+                           nccl["expected_collectives_per_step"]["total"],
+                           nccl["nccl_kernels_between_b1"],
+                           nccl["host_nccl_records"]))
     problems += _dp_problems(runs)
     if [r.get("ok") for r in workers.get("nccl_pair", [])] != [False,
                                                                 False]:
@@ -3902,6 +3932,293 @@ def phase_train_moe_ep(smi: str, one_12layers: list = None) -> dict:
         fail("train_moe_ep: " + "; ".join(problems))
     return out
 
+# ---------------------------------------------------------------------------
+# train_migrate: the live-migration MOVE of ResNet-50 over the artifact tier
+# ---------------------------------------------------------------------------
+
+#: the step the operator's MOVE notice lands on: not a multiple of the
+#: checkpoint interval (10), so the drain's cut is a fresh save
+MIGRATE_AT = 13
+#: the steps of phase train's run, which the MOVE must reproduce
+MIGRATE_STEPS = 30
+#: the job key the notice names and the destination's
+#: TPUJOB_MIGRATE_STATE carries
+MIGRATE_NS, MIGRATE_NAME = "smoke", "resnet50"
+#: steps of the planted faults' runs: f1's source drains at step 2, and
+#: f2-f4's destinations train 2 steps past where they start
+MIGRATE_FAULT_STEPS = 2
+#: the gate each planted fault must make fire
+MIGRATE_FAULT_GATES = {"f1_torn_notice": "published",
+                       "f2_unpublished_step": "prestage",
+                       "f3_poisoned_bundle": "prestage",
+                       "f4_stale_cut": "losses"}
+
+
+def _migrate_sc(name: str, ckpt_dir: str, steps: int, **kw) -> dict:
+    """A migrate_check scenario of phase train's ResNet-50 job."""
+    return dict(name=name, model="resnet50", depth=DEPTH, classes=CLASSES,
+                image=IMAGE, batch=BATCH, schedule=MIGRATE_STEPS,
+                steps=steps, every=10, ckpt_dir=ckpt_dir, device=DEVICE,
+                **kw)
+
+
+def _loss_diff(got: list, want: list) -> float:
+    """The largest |got - want| over the steps, inf when the counts
+    differ."""
+    if len(got) != len(want):
+        return float("inf")
+    return max((abs(a - b) for a, b in zip(got, want)), default=0.0)
+
+
+def _source_problems(line: dict, at: int, train_losses: list,
+                     published: int) -> list:
+    """The source's gates, (gate, message) each: drained at step ``at``
+    as a MOVE, its cut published once (``published``: the server's
+    publish count over the run), steps 1..at bitwise phase train's."""
+    out = []
+    if not line["drained"] or line["drain_step"] != at:
+        out.append(("drained", "drained %r at step %r, not at %d"
+                    % (line["drained"], line["drain_step"], at)))
+    if line["drain_reason"] != "migrate":
+        out.append(("reason", "drain_reason %r" % line["drain_reason"]))
+    pub = line["migrate_published"] or {}
+    if pub.get("step") != at or published != 1:
+        out.append(("published", "published %r, %d on the server"
+                    % (pub, published)))
+    got = migrate_check.losses(line)
+    if not _loss_diff(got, train_losses[:at]) <= TRAIN_TOL:
+        out.append(("losses", "steps 1-%d are not phase train's: %r vs %r"
+                    % (at, got, train_losses[:at])))
+    return out
+
+
+def _destination_problems(line: dict, at: int, total: int,
+                          train_losses: list, entries: list) -> list:
+    """The destination's gates, (gate, message) each: step ``at``
+    pre-staged and restored, steps at+1..total bitwise phase train's with
+    one B1 launch each, no ``.prestage_*`` entry left among ``entries``
+    (its checkpoint dir's)."""
+    out = []
+    if line["migrate_prefetched_step"] != at:
+        out.append(("prestage", "pre-staged %r, not step %d"
+                    % (line["migrate_prefetched_step"], at)))
+    if line["resume_steps"] != [at]:
+        out.append(("restore", "restored %r, not [%d]"
+                    % (line["resume_steps"], at)))
+    got = migrate_check.losses(line)
+    want = train_losses[at:total]
+    if not _loss_diff(got[:len(want)], want) <= TRAIN_TOL \
+            or len(got) != len(want):
+        out.append(("losses", "steps %d-%d are not phase train's: %r vs %r"
+                    % (at + 1, total, got, want)))
+    if line["launches"]["fused_sgd"] != total - at:
+        out.append(("launches", "B1 launched %d times, not %d"
+                    % (line["launches"]["fused_sgd"], total - at)))
+    left = [n for n in entries if n.startswith(".prestage_")]
+    if left:
+        out.append(("leftovers", "left in the checkpoint dir: %r" % left))
+    return out
+
+
+def _fallback_problems(line: dict, train_losses: list) -> list:
+    """A destination whose pre-stage missed: nothing pre-staged or
+    restored, and its steps from 0 bitwise phase train's."""
+    out = []
+    if line["migrate_prefetched_step"] is not None or line["resume_steps"]:
+        out.append("pre-staged %r, restored %r"
+                   % (line["migrate_prefetched_step"],
+                      line["resume_steps"]))
+    got = migrate_check.losses(line)
+    if not _loss_diff(got, train_losses[:len(got)]) <= TRAIN_TOL or \
+            len(got) != MIGRATE_FAULT_STEPS:
+        out.append("its %d steps from 0 are not phase train's: %r"
+                   % (len(got), got))
+    return out
+
+
+def phase_train_migrate(smi: str, train_losses: list) -> dict:
+    """The live-migration MOVE on its own: phase train's ResNet-50 v1.5
+    job (224x224, batch 128, bf16 on fp32 params, ``fused_sgd`` (B1) at
+    ``cosine_schedule(0.4, 30, 1)``, momentum 0.9, wd 1e-4, deterministic
+    cuDNN, a checkpoint every 10 steps) moved mid-run through the port's
+    ``ArtifactServer``, run here in a thread over a temporary store, with
+    ``TPUJOB_ARTIFACT_STORE=0`` and ``TPUJOB_ARTIFACT_URL`` at the server,
+    so that the state bundle rides HTTP only:
+
+    (a) the source, in this process: the operator's notice
+        ``{"namespace": "smoke", "name": "resnet50"}`` is written to
+        ``TPUJOB_MIGRATE_FILE`` from step MIGRATE_AT's loss call; the run
+        drains at that step as a MOVE and publishes its fresh cut once;
+        its steps bitwise ``train_losses``;
+    (b) the destination, a fresh process (``migrate_check``, through
+        ``python -m paddle_operator_tpu_torch.launch``) started after the
+        source exits, with ``TPUJOB_MIGRATE_STATE=smoke/resnet50:13`` and
+        an empty checkpoint dir: it pre-stages and restores step 13 and
+        trains to 30, steps 14-30 bitwise ``train_losses``, one B1 launch
+        a step, no ``.prestage_*`` entry left;
+    (c) four planted faults, each of which makes its gate
+        (MIGRATE_FAULT_GATES) fire: f1, a torn notice
+        (``{"namespace": ``): the source drains clean as a MOVE and
+        publishes nothing; f2, a destination naming an unpublished step:
+        the pre-stage misses and the run starts from step 0, bitwise
+        phase train's; f3, a byte of the stored bundle flipped on the
+        server's disk after (b): the server quarantines it
+        (``poisoned_quarantined`` 1) and the destination falls back as in
+        f2, assembling no step dir; f4, the step-10 dir published under
+        step 13's key: the destination resumes, and the bitwise loss gate
+        of (b) fails.
+
+    Every loss comparison is at TRAIN_TOL (0). Printed beside the card:
+    the bundle's and ``state.npz``'s bytes, the publish, pre-stage and
+    restore seconds, the blackout by part (``migrate_check.blackout``)
+    and the phase's seconds."""
+    t0 = time.perf_counter()
+    at, total = MIGRATE_AT, MIGRATE_STEPS
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_migrate_")
+    dirs = {k: os.path.join(tmp, k) for k in (
+        "store", "src", "dst", "f1", "f2", "f3", "f4")}
+    notice = os.path.join(tmp, "migrate.json")
+    move = {"namespace": MIGRATE_NS, "name": MIGRATE_NAME}
+    key = "%s/%s" % (MIGRATE_NS, MIGRATE_NAME)
+    fp = state_fingerprint(MIGRATE_NS, MIGRATE_NAME, at)
+    runs, faults, counts = {}, {}, {}
+    try:
+        with ArtifactServer("127.0.0.1:0", store_dir=dirs["store"]) as srv, \
+                migrate_check.environ(TPUJOB_ARTIFACT_STORE="0",
+                                      TPUJOB_ARTIFACT_URL=srv.url,
+                                      TPUJOB_MIGRATE_STATE=None,
+                                      TPUJOB_MIGRATE_FILE=notice):
+            def published() -> int:
+                return srv.state.snapshot()["publish"]
+
+            before = published()
+            runs["source"] = migrate_check.run_scenario(_migrate_sc(
+                "source", dirs["src"], total,
+                notice={"file": notice, "at": at - 1, "intent": move}))
+            counts["source_publishes"] = published() - before
+            os.remove(notice)
+            with migrate_check.environ(TPUJOB_MIGRATE_FILE=None):
+                runs["destination"] = migrate_check.launch(
+                    {"out": os.path.join(tmp, "pod"), "scenarios": [
+                        _migrate_sc("destination", dirs["dst"], total)]},
+                    env={"TPUJOB_MIGRATE_STATE": "%s:%d" % (key, at),
+                         "TPUJOB_ARTIFACT_URL": srv.url,
+                         "TPUJOB_ARTIFACT_STORE": "0"})["destination"]
+            bundle_path = os.path.join(dirs["store"], fp + ".tpuart")
+            sizes = {"bundle": os.path.getsize(bundle_path),
+                     "state_npz": os.path.getsize(os.path.join(
+                         dirs["src"], "step_%012d" % at, "state.npz"))}
+            # (c) the planted faults
+            before = published()
+            faults["f1_torn_notice"] = migrate_check.run_scenario(
+                _migrate_sc("f1", dirs["f1"], total, notice={
+                    "file": notice, "at": MIGRATE_FAULT_STEPS - 1,
+                    "raw": '{"namespace": '}))
+            counts["f1_publishes"] = published() - before
+            os.remove(notice)
+            with migrate_check.environ(TPUJOB_MIGRATE_FILE=None):
+                with migrate_check.environ(
+                        TPUJOB_MIGRATE_STATE="%s:%d" % (key, at + 1)):
+                    faults["f2_unpublished_step"] = \
+                        migrate_check.run_scenario(_migrate_sc(
+                            "f2", dirs["f2"], MIGRATE_FAULT_STEPS))
+                blob = bytearray(open(bundle_path, "rb").read())
+                blob[len(blob) // 2] ^= 0xFF
+                with open(bundle_path, "wb") as f:
+                    f.write(bytes(blob))
+                del blob
+                quarantined = srv.state.snapshot()["poisoned_quarantined"]
+                with migrate_check.environ(
+                        TPUJOB_MIGRATE_STATE="%s:%d" % (key, at)):
+                    faults["f3_poisoned_bundle"] = \
+                        migrate_check.run_scenario(_migrate_sc(
+                            "f3", dirs["f3"], MIGRATE_FAULT_STEPS))
+                    counts["f3_quarantined"] = srv.state.snapshot()[
+                        "poisoned_quarantined"] - quarantined
+                    ArtifactStore(url=srv.url).publish(fp, pack_state_dir(
+                        os.path.join(dirs["src"], "step_%012d" % 10)))
+                    faults["f4_stale_cut"] = migrate_check.run_scenario(
+                        _migrate_sc("f4", dirs["f4"],
+                                    at + MIGRATE_FAULT_STEPS))
+            leftovers = {k: sorted(os.listdir(dirs[k]))
+                         if os.path.isdir(dirs[k]) else []
+                         for k in ("dst", "f2", "f3", "f4")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        cudnn.deterministic, cudnn.benchmark = saved
+    src, dst = runs["source"], runs["destination"]
+    gates = {"source": _source_problems(src, at, train_losses,
+                                        counts["source_publishes"]),
+             "destination": _destination_problems(
+                 dst, at, total, train_losses, leftovers["dst"])}
+    gates["f1_torn_notice"] = _source_problems(
+        faults["f1_torn_notice"], MIGRATE_FAULT_STEPS, train_losses,
+        counts["f1_publishes"])
+    for name in ("f2_unpublished_step", "f3_poisoned_bundle",
+                 "f4_stale_cut"):
+        gates[name] = _destination_problems(
+            faults[name], at, at + MIGRATE_FAULT_STEPS, train_losses,
+            leftovers[name[:2]])
+    parts = migrate_check.blackout(src, dst)
+    keep = ("steps", "resume_steps", "drained", "drain_step",
+            "drain_reason", "migrate_published", "migrate_prefetched_step",
+            "migrate_stages", "cycle_stages", "launches", "wall_s")
+    out = {
+        "phase": "train_migrate", "card": smi,
+        "config": {"depth": DEPTH, "classes": CLASSES, "image": IMAGE,
+                   "batch": BATCH, "steps": total, "move_at": at,
+                   "checkpoint_every": 10, "tier": "http"},
+        "runs": {k: {f: r[f] for f in keep} | {
+            "losses": migrate_check.losses(r)}
+            for k, r in (runs | faults).items()},
+        "bytes": sizes, "server_counts": counts,
+        "launches": {"fused_sgd": src["launches"]["fused_sgd"]
+                     + dst["launches"]["fused_sgd"]},
+        "publish_s": src["migrate_stages"].get("publish_s"),
+        "prestage_s": dst["migrate_stages"].get("prestage_s"),
+        "restore_s": dst["cycle_stages"][0]["restore_s"],
+        "blackout": parts, "leftovers": leftovers,
+        "gates": {k: [g for g, _ in v] for k, v in gates.items()},
+        "tolerance": TRAIN_TOL, "seconds": time.perf_counter() - t0,
+    }
+    emit(out)
+    print("train_migrate (%s): bundle %d bytes, state.npz %d bytes; "
+          "publish %.3f s, pre-stage %.3f s, restore %.3f s" % (
+              smi, sizes["bundle"], sizes["state_npz"], out["publish_s"],
+              out["prestage_s"], out["restore_s"]), flush=True)
+    print("train_migrate (%s): blackout %.3f s: %s" % (
+        smi, parts["total_s"], ", ".join(
+            "%s %.3f" % (k[:-2], v) for k, v in parts.items()
+            if k != "total_s")), flush=True)
+    print("train_migrate (%s): phase %.1f s" % (smi, out["seconds"]),
+          flush=True)
+    problems = [msg for name in ("source", "destination")
+                for _, msg in gates[name]]
+    for name, gate in MIGRATE_FAULT_GATES.items():
+        if gate not in {g for g, _ in gates[name]}:
+            problems.append("the %s gate missed the planted fault %s"
+                            % (gate, name))
+    f1 = {g for g, _ in gates["f1_torn_notice"]}
+    if f1 & {"drained", "reason"}:
+        problems.append("f1: the torn notice's source did not drain clean "
+                        "as a MOVE: %r" % gates["f1_torn_notice"])
+    for name in ("f2_unpublished_step", "f3_poisoned_bundle"):
+        problems += ["%s: %s" % (name, p) for p in
+                     _fallback_problems(faults[name], train_losses)]
+    if counts["f3_quarantined"] != 1:
+        problems.append("f3: the server quarantined %d bundles, not 1"
+                        % counts["f3_quarantined"])
+    if "step_%012d" % at in leftovers["f3"]:
+        problems.append("f3: a step dir was assembled from the poisoned "
+                        "bundle")
+    if faults["f4_stale_cut"]["migrate_prefetched_step"] != at:
+        problems.append("f4: the stale cut was not pre-staged")
+    if problems:
+        fail("train_migrate: " + "; ".join(problems))
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3931,6 +4248,8 @@ def main() -> int:
     elastic_out = phase_train_elastic(env["nvidia_smi"])
     moe_ep_out = phase_train_moe_ep(
         env["nvidia_smi"], moe_out["losses"]["kernels"][:MOE_EP_STEPS])
+    migrate_out = phase_train_migrate(env["nvidia_smi"],
+                                      train["losses"]["fused_sgd"])
     # the MoE-ep path's launches, summed over the ranks of its sound runs
     moe_ep_launches = {
         k: sum(n[k] for name in MOE_EP_SOUND
@@ -3999,7 +4318,11 @@ def main() -> int:
           "moe_ep_launches_per_rank": {
               name: moe_ep_out["runs"][name]["launches"]
               for name in MOE_EP_SOUND},
-          "train_moe_ep_seconds": moe_ep_out["seconds"]})
+          "train_moe_ep_seconds": moe_ep_out["seconds"],
+          "migrate_launches": {
+              k: migrate_out["runs"][k]["launches"]["fused_sgd"]
+              for k in ("source", "destination")},
+          "train_migrate_seconds": migrate_out["seconds"]})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -4012,7 +4335,8 @@ def main() -> int:
         "name": "fused_sgd", "route": "cuda", "source": SGD_SOURCE,
         "replaces": SGD_REPLACES,
         "launches": train["launches"]["fused_sgd"]
-        + elastic_launches["fused_sgd"],
+        + elastic_launches["fused_sgd"]
+        + migrate_out["launches"]["fused_sgd"],
         "max_abs_err": sgd["max_abs_err"], "ms": sgd["kernel_ms"],
         "plain_ms": sgd["plain_ms"], "bound_ms": sgd["bound_ms"],
         "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"]}]

@@ -21,7 +21,10 @@ Ported so far:
   ``sp`` mesh with ring attention (:mod:`.parallel.context`);
 * the CTR models (:mod:`.models.wide_deep`, :mod:`.models.deepfm`), in
   collective mode through the runner and in parameter-server mode
-  (:mod:`.ps`): numpy pservers on the host, BSP trainers on the card.
+  (:mod:`.ps`): numpy pservers on the host, BSP trainers on the card;
+* the live-migration MOVE: the runner's drain publishes its cut as a
+  state bundle through the artifact store (:mod:`.artifacts`), and the
+  destination pre-stages it before its first cycle.
 
 Entry points run on CUDA unless given ``device="cpu"``
 (:func:`.device.resolve_device`).

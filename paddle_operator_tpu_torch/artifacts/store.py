@@ -1,0 +1,391 @@
+"""The artifact store's client: content-addressed, CRC-pinned bundles in
+two tiers, the port's copy of ``paddle_operator_tpu/artifacts/store.py``
+less its compile leases.
+
+* **local**: a shared directory (``TPUJOB_ARTIFACT_STORE``, e.g. a
+  ReadWriteMany volume every host mounts); bundles are published with
+  the tmp + ``os.replace`` discipline, so readers never see a torn file;
+* **remote**: the operator-served HTTP endpoint (``TPUJOB_ARTIFACT_URL``,
+  :mod:`.server`): ``GET/PUT /v1/artifact`` move whole bundles, or one
+  member of one (``member=``).
+
+Every fetch is verified (:mod:`.bundle`): CRC-pinned members, a
+fingerprint-matched header. A poisoned, torn or stale artifact is
+rejected, counted, and reported as a miss; a tier that is down degrades
+to a miss with one warning. Publishes are best-effort and idempotent.
+
+Counters live under ``_lock``; file and HTTP I/O happen outside it.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+import urllib.error
+import urllib.parse
+import urllib.request
+import zlib
+from typing import Any, Dict, Optional, Tuple
+
+from . import bundle
+from .bundle import PoisonedArtifactError
+
+log = logging.getLogger("tpujob.artifacts")
+
+TIERS = ("local", "remote")
+
+DEFAULT_HTTP_TIMEOUT_S = 5.0
+#: transient HTTP failures (connection reset, 5xx) get this many RETRIES
+#: on top of the first attempt: one dropped packet mid-migration must not
+#: abort a whole state pre-stage
+DEFAULT_HTTP_RETRIES = 2
+DEFAULT_RETRY_BACKOFF_S = 0.05
+DEFAULT_RETRY_BACKOFF_CAP_S = 1.0
+
+
+def enabled() -> bool:
+    return os.environ.get("TPUJOB_ARTIFACTS", "1") != "0"
+
+
+def _env_config() -> Optional[Tuple[str, str]]:
+    """(local_dir, url) from the environment, or None when the store is
+    disabled or unconfigured. ``TPUJOB_ARTIFACT_STORE=0`` disables the
+    local tier the same way ``TPUJOB_ARTIFACTS=0`` disables both."""
+    if not enabled():
+        return None
+    local = os.environ.get("TPUJOB_ARTIFACT_STORE", "")
+    if local == "0":
+        local = ""
+    url = os.environ.get("TPUJOB_ARTIFACT_URL", "").rstrip("/")
+    if not local and not url:
+        return None
+    return (local, url)
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+class ArtifactStore:
+    """One process's client to the configured tiers. Construct through
+    :func:`get_store` (an env-keyed singleton), not directly."""
+
+    def __init__(self, local_dir: str = "", url: str = "",
+                 http_timeout_s: Optional[float] = None,
+                 http_retries: Optional[int] = None) -> None:
+        self.local_dir = local_dir
+        self.url = url.rstrip("/")
+        self.http_timeout_s = (http_timeout_s if http_timeout_s is not None
+                               else _env_float("TPUJOB_ARTIFACT_HTTP_TIMEOUT",
+                                               DEFAULT_HTTP_TIMEOUT_S))
+        self.http_retries = max(0, int(
+            http_retries if http_retries is not None else
+            _env_float("TPUJOB_ARTIFACT_HTTP_RETRIES",
+                       DEFAULT_HTTP_RETRIES)))
+        self.retry_backoff_s = DEFAULT_RETRY_BACKOFF_S
+        self._lock = threading.Lock()
+        self._stats: Dict[str, float] = {}
+        for tier in TIERS:
+            for k in ("hits", "misses", "publishes", "poisoned",
+                      "fetch_seconds", "retries"):
+                self._stats["%s_%s" % (k, tier)] = 0
+        # serializes this process's local-tier read-merge-replace so two
+        # threads cannot drop each other's members
+        self._pub_lock = threading.Lock()
+        self._warned: set = set()
+
+    # -- stats -----------------------------------------------------------
+
+    def _bump_locked(self, key: str, n: float = 1) -> None:
+        self._stats[key] = self._stats.get(key, 0) + n
+
+    def _bump(self, key: str, n: float = 1) -> None:
+        with self._lock:
+            self._bump_locked(key, n)
+
+    def stats(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._stats)
+
+    def _warn_once(self, key: str, msg: str, *args: Any) -> None:
+        with self._lock:
+            if key in self._warned:
+                return
+            self._warned.add(key)
+        log.warning(msg, *args)
+
+    # -- local tier ------------------------------------------------------
+
+    def _bundle_path(self, fingerprint: str) -> str:
+        return os.path.join(self.local_dir, fingerprint + bundle.SUFFIX)
+
+    def _local_fetch(self, fingerprint: str, member: Optional[str] = None
+                     ) -> Optional[Dict[str, bytes]]:
+        """Read + verify the local-tier bundle (always verified WHOLE;
+        ``member`` then narrows the result). A poisoned file is DELETED
+        and raises PoisonedArtifactError, so the caller counts the
+        reject; a missing file or member is a plain miss."""
+        path = self._bundle_path(fingerprint)
+        try:
+            with open(path, "rb") as fh:
+                data = fh.read()
+        except OSError:
+            return None
+        try:
+            members = bundle.parse(data, fingerprint)
+        except PoisonedArtifactError:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            raise
+        if member is not None:
+            if member not in members:
+                return None
+            return {member: members[member]}
+        return members
+
+    def _local_publish(self, fingerprint: str,
+                       members: Dict[str, bytes]) -> bool:
+        """Merge-publish into the local tier: members the new payload
+        does not carry are kept, and the final write is atomic."""
+        path = self._bundle_path(fingerprint)
+        with self._pub_lock:
+            try:
+                bundle.merge_write(path, fingerprint, members)
+                return True
+            except OSError as e:
+                self._warn_once("local_publish",
+                                "artifact store %s not writable (%s); "
+                                "local publishes disabled",
+                                self.local_dir, e)
+                return False
+
+    # -- remote tier -----------------------------------------------------
+
+    def _retry_backoff(self, path: str, attempt: int) -> float:
+        """Deterministic capped-exponential backoff: the jitter is derived
+        from crc32(path#attempt), so replays of a flaky-network migration
+        sleep identically, yet concurrent clients de-synchronize."""
+        base = min(self.retry_backoff_s * (2 ** (attempt - 1)),
+                   DEFAULT_RETRY_BACKOFF_CAP_S)
+        salt = zlib.crc32(("%s#%d" % (path, attempt)).encode())
+        return base * (0.5 + 0.5 * (salt % 1000) / 999.0)
+
+    def _http(self, method: str, path: str,
+              body: Optional[bytes] = None) -> Tuple[int, bytes]:
+        """One HTTP exchange with bounded transient-failure retries:
+        connection-level failures (reset, refused, timeout) and 5xx
+        answers are re-tried up to ``http_retries`` times with the
+        deterministic backoff, counted as ``retries_remote``; 4xx and
+        other definitive answers return at once. The last failure
+        propagates as the unretried call's would."""
+        attempts = self.http_retries + 1
+        for attempt in range(attempts):
+            if attempt:
+                self._bump("retries_remote")
+                time.sleep(self._retry_backoff(path, attempt))
+            req = urllib.request.Request(self.url + path, data=body,
+                                         method=method)
+            if body is not None:
+                req.add_header("Content-Type",
+                               "application/octet-stream")
+            try:
+                with urllib.request.urlopen(
+                        req, timeout=self.http_timeout_s) as resp:
+                    return resp.status, resp.read()
+            except urllib.error.HTTPError as e:
+                data = e.read()
+                if e.code < 500 or attempt == attempts - 1:
+                    return e.code, data
+            except (urllib.error.URLError, OSError):
+                if attempt == attempts - 1:
+                    raise
+        raise AssertionError("unreachable")  # pragma: no cover
+
+    def _remote_fetch(self, fingerprint: str, member: Optional[str] = None
+                      ) -> Optional[Dict[str, bytes]]:
+        url = "/v1/artifact?fp=%s" % fingerprint
+        if member is not None:
+            # member-scoped: the server re-packs just this member
+            url += "&member=%s" % urllib.parse.quote(member, safe="")
+        code, data = self._http("GET", url)
+        if code != 200:
+            return None
+        members = bundle.parse(data, fingerprint)
+        if member is not None and member not in members:
+            return None
+        return members
+
+    def _remote_publish(self, fingerprint: str,
+                        members: Dict[str, bytes]) -> bool:
+        code, _ = self._http("PUT", "/v1/artifact?fp=%s" % fingerprint,
+                             body=bundle.pack(fingerprint, members))
+        return code == 200
+
+    # -- the public surface ---------------------------------------------
+
+    def fetch(self, fingerprint: str, member: Optional[str] = None
+              ) -> Tuple[Optional[Dict[str, bytes]], Optional[str]]:
+        """Try every configured tier in order (local first: it is the
+        cheap one). Returns ``(members, tier)`` on a verified hit,
+        ``(None, None)`` on a miss. ``member`` narrows the fetch to one
+        bundle member. Poisoned artifacts are rejected, counted per tier
+        and reported as misses; a tier that fails degrades to a miss with
+        one warning and never raises. Fetch seconds accumulate for every
+        outcome."""
+        for tier, impl in (("local", self._local_fetch),
+                           ("remote", self._remote_fetch)):
+            if not self._tier_configured(tier):
+                continue
+            t0 = time.perf_counter()
+            members = None
+            poisoned: Optional[PoisonedArtifactError] = None
+            try:
+                members = impl(fingerprint, member)
+            except PoisonedArtifactError as e:
+                poisoned = e
+            except Exception as e:  # tier down: degrade, never raise
+                self._warn_once("fetch_%s" % tier,
+                                "artifact %s tier unavailable: %s", tier, e)
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self._bump_locked("fetch_seconds_%s" % tier, dt)
+                if poisoned is not None:
+                    self._bump_locked("poisoned_%s" % tier)
+                self._bump_locked("hits_%s" % tier if members is not None
+                                  else "misses_%s" % tier)
+            if poisoned is not None:
+                log.warning("rejected poisoned artifact %s from %s tier: %s",
+                            fingerprint[:12], tier, poisoned)
+            if members is not None:
+                return members, tier
+        return None, None
+
+    def _tier_configured(self, tier: str) -> bool:
+        return bool(self.local_dir if tier == "local" else self.url)
+
+    def publish(self, fingerprint: str, members: Dict[str, bytes]) -> None:
+        """Publish/merge ``members`` under ``fingerprint`` into every
+        configured tier. Best-effort and idempotent: a tier that fails
+        costs a fallback somewhere, never this process's run (a refused
+        PUT, such as a bundle over ``MAX_BUNDLE_BYTES``, is not
+        counted)."""
+        if not members:
+            return
+        if self.local_dir and self._local_publish(fingerprint, members):
+            self._bump("publishes_local")
+        if self.url:
+            try:
+                ok = self._remote_publish(fingerprint, members)
+            except Exception as e:
+                self._warn_once("publish_remote",
+                                "artifact remote publish failed: %s", e)
+                ok = False
+            if ok:
+                self._bump("publishes_remote")
+
+
+# ---------------------------------------------------------------------------
+# env-keyed singleton
+# ---------------------------------------------------------------------------
+
+class _SingletonState:
+    """The module's one store client (one per process config), its
+    fields under ``_lock``."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.store: Optional[ArtifactStore] = None
+        self.key: Optional[Tuple[str, str]] = None
+
+
+_sing = _SingletonState()
+
+
+def get_store() -> Optional[ArtifactStore]:
+    """The process's store client for the CURRENT environment, or None
+    when no tier is configured or ``TPUJOB_ARTIFACTS=0``. Re-keyed on an
+    env change (tests repoint the store per scenario); the counters reset
+    with the key."""
+    cfg = _env_config()
+    with _sing._lock:
+        if cfg == _sing.key:
+            return _sing.store
+        _sing.key = cfg
+        _sing.store = None if cfg is None else ArtifactStore(
+            local_dir=cfg[0], url=cfg[1])
+        return _sing.store
+
+
+def reset_for_tests() -> None:
+    with _sing._lock:
+        _sing.store = None
+        _sing.key = None
+
+
+# ---------------------------------------------------------------------------
+# observability
+# ---------------------------------------------------------------------------
+
+#: (family, help, type, stats key prefix) of the client's exposition:
+#: the reference's families and text, less the compile-lease family
+_FAMILIES = (
+    ("tpujob_artifact_hits_total",
+     "verified artifact fetches served, by tier", "counter", "hits"),
+    ("tpujob_artifact_misses_total",
+     "artifact fetches that found nothing usable, by tier", "counter",
+     "misses"),
+    ("tpujob_artifact_publishes_total",
+     "bundles published after a first compile, by tier", "counter",
+     "publishes"),
+    ("tpujob_artifact_poisoned_rejected_total",
+     "fetched artifacts rejected by verification (bad CRC, torn file, "
+     "stale fingerprint, first-call fallback), by tier", "counter",
+     "poisoned"),
+    ("tpujob_artifact_fetch_seconds",
+     "total wall seconds spent fetching + verifying artifacts, by tier",
+     "gauge", "fetch_seconds"),
+    ("tpujob_artifact_fetch_retries_total",
+     "transient HTTP failures (connection reset, 5xx) retried with "
+     "deterministic capped backoff, by tier", "counter", "retries"),
+)
+
+
+def metrics_text() -> str:
+    """The client's ``tpujob_artifact_*`` exposition. Every (family,
+    tier) pair is always emitted, so dashboards see stable zero-valued
+    series while the store is idle or unconfigured."""
+    store = get_store()
+    s = store.stats() if store is not None else {}
+    lines = []
+    for family, help_, kind, key in _FAMILIES:
+        lines += ["# HELP %s %s" % (family, help_),
+                  "# TYPE %s %s" % (family, kind)]
+        fmt = '%s{tier="%s"} %.3f' if kind == "gauge" else \
+            '%s{tier="%s"} %d'
+        lines += [fmt % (family, t, s.get("%s_%s" % (key, t), 0))
+                  for t in TIERS]
+    return "\n".join(lines) + "\n"
+
+
+def stats_block() -> Dict[str, float]:
+    """Compact summary of the store's counters (the nonzero ones)."""
+    store = get_store()
+    if store is None:
+        return {"configured": False}
+    s = store.stats()
+    out: Dict[str, float] = {"configured": True}
+    out.update({k: s[k] for k in sorted(s) if s[k]})
+    return out
+
+
+__all__ = [
+    "ArtifactStore", "PoisonedArtifactError", "TIERS", "enabled",
+    "get_store", "metrics_text", "reset_for_tests", "stats_block",
+]

@@ -133,7 +133,9 @@ class Recorder:
     update, a host clock after a device sync (the step's end, before the
     boundary's save and poll). Rank 0 may hold step ``hold_at`` of its
     first cycle until the job's epoch has moved; a rank may request a
-    drain during one step."""
+    drain during one step (``drain``: a :class:`.runner.DrainMonitor`, or
+    anything with its ``request()``, such as the MOVE notice of
+    :class:`.migrate_check.MigrateNotice`)."""
 
     def __init__(self, loss_fn: Callable, hold: Optional[Callable] = None,
                  hold_at: int = -1,

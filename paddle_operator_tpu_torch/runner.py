@@ -32,15 +32,26 @@ the mesh (``mesh_axes`` may be a callable of the world size), restores
 and trains on; a worker whose index the new world no longer holds
 leaves after the save.
 
-Not ported yet: the live-migration handshake, incident tracing, the
-worker metrics server, step profiling, straggler detection and the
-hardware-efficiency plane.
+A drain can be a MOVE (the live-migration handshake, docs/design.md
+"Live migration"): the operator's drain notice writes the intent
+(``{"namespace", "name"}``) to ``TPUJOB_MIGRATE_FILE``; the drained exit
+of a world of one (worker 0) then publishes the final cut, once the
+writer has landed it, as a state bundle through the artifact store
+(:mod:`.artifacts.state`). The destination pod carries
+``TPUJOB_MIGRATE_STATE="ns/name:step"`` and pre-stages that bundle into
+its checkpoint dir before the first cycle, so the restore finds the
+source's cut; any miss or poisoned member falls back to the durable
+checkpoint, never to a wrong restore.
+
+Not ported yet: incident tracing, the worker metrics server, step
+profiling, straggler detection and the hardware-efficiency plane.
 """
 
 from __future__ import annotations
 
 import functools
 import inspect
+import json
 import logging
 import os
 import threading
@@ -50,6 +61,8 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from .artifacts import get_store
+from .artifacts.state import fetch_state, publish_state, state_fingerprint
 from .data import DeferredMetrics, ShardedLoader, job_window_source, \
     process_shard, step_generator
 from .device import DeviceLike, resolve_device
@@ -75,20 +88,53 @@ class DrainMonitor:
     appearing, a POSIX signal (``drain_signals``, typically SIGTERM), or a
     programmatic :meth:`request`. The loop polls :meth:`requested` at
     every step boundary; on drain it checkpoints at once and exits clean,
-    losing no steps."""
+    losing no steps.
 
-    def __init__(self, drain_file: str = "", signals: Tuple = ()) -> None:
+    A drain can be a MOVE: the same final checkpoint, which the exit then
+    also publishes as a state bundle for the destination to pre-stage.
+    A migrate file carrying the JSON intent (``TPUJOB_MIGRATE_FILE``, what
+    the operator's drain notice writes) or :meth:`request_migrate` arms
+    it."""
+
+    def __init__(self, drain_file: str = "", signals: Tuple = (),
+                 migrate_file: str = "") -> None:
         self._file = drain_file
         self._signals = tuple(signals)
         self._event = threading.Event()
         self._installed: list = []
+        self._migrate_file = migrate_file
+        self._migrate: Optional[dict] = None
 
     def request(self) -> None:
         self._event.set()
 
+    def request_migrate(self, intent: Optional[dict] = None) -> None:
+        """Arm the drain as a MOVE: the intent (``namespace`` and
+        ``name`` at least) says where the exit publishes the state. It is
+        set BEFORE the event, so a drain that sees the event sees it."""
+        self._migrate = dict(intent or {})
+        self._event.set()
+
     def requested(self) -> bool:
         return self._event.is_set() or bool(
-            self._file and os.path.exists(self._file))
+            self._file and os.path.exists(self._file)) or bool(
+            self._migrate_file and os.path.exists(self._migrate_file))
+
+    def migrate_intent(self) -> Optional[dict]:
+        """The MOVE intent when this drain is a migration, else None (an
+        ordinary drain). A torn or non-object migrate file gives ``{}``:
+        the drain still exits clean, and only the publish is skipped for
+        want of a job key."""
+        if self._migrate is not None:
+            return dict(self._migrate)
+        if self._migrate_file and os.path.exists(self._migrate_file):
+            try:
+                with open(self._migrate_file) as fh:
+                    out = json.load(fh)
+                return dict(out) if isinstance(out, dict) else {}
+            except (OSError, ValueError):
+                return {}
+        return None
 
     def install(self) -> "DrainMonitor":
         """Install the signal handlers (main thread only)."""
@@ -171,7 +217,12 @@ def run_training(job: TrainJob, cfg: Optional[LaunchConfig] = None,
 
     Returns ``{"state", "steps", "cycles", "loss", "host_stages",
     "mesh_history", "cycle_stages"}``, plus ``"resume_steps"`` after a
-    restore, ``"drained"``/``"drain_step"`` after a drain and
+    restore, ``"drained"``/``"drain_step"`` after a drain (and
+    ``"drain_reason": "migrate"`` after a MOVE, with
+    ``"migrate_published": {"fp", "step"}`` once its cut is published),
+    ``"migrate_prefetched_step"`` when a MOVE's state was pre-staged,
+    ``"migrate_stages"`` with the host seconds of the publish
+    (``publish_s``) and the pre-stage (``prestage_s``), and
     ``"left_at_epoch"`` on a worker that an elastic shrink removed.
     ``cycle_stages`` holds, a cycle each, its epoch, world, first and
     last step, its host seconds by part (the rendezvous with its mesh,
@@ -193,7 +244,8 @@ def run_training(job: TrainJob, cfg: Optional[LaunchConfig] = None,
     writer = AsyncCheckpointer()
     drain = job.drain_monitor or DrainMonitor(
         job.drain_file or os.environ.get("TPUJOB_DRAIN_FILE", ""),
-        job.drain_signals)
+        job.drain_signals,
+        migrate_file=os.environ.get("TPUJOB_MIGRATE_FILE", ""))
     world_of = ElasticWorld(cfg, job.device) if (
         cfg.is_elastic and init_distributed) else None
 
@@ -225,6 +277,9 @@ def run_training(job: TrainJob, cfg: Optional[LaunchConfig] = None,
                 world_of.leave()
             stages["leave_s"] = time.perf_counter() - t
 
+    # a pod that receives a MOVE pulls the source's cut in before the
+    # first cycle's restore looks for it
+    _prestage(job, result)
     made = not cfg.is_elastic and init_distributed and \
         initialize_distributed(cfg, device=job.device)
     try:
@@ -246,6 +301,62 @@ def run_training(job: TrainJob, cfg: Optional[LaunchConfig] = None,
         drain.uninstall()
         shutdown_distributed(made)
     return result
+
+
+def _prestage(job: TrainJob, result: Dict[str, Any]) -> None:
+    """The destination's side of a MOVE: with
+    ``TPUJOB_MIGRATE_STATE="ns/name:step"``, fetch that state bundle into
+    ``job.checkpoint_dir`` (all or nothing, :func:`.artifacts.state.
+    fetch_state`). A spec that does not parse is ignored; a miss or a
+    poisoned member falls back to the durable checkpoint."""
+    spec = os.environ.get("TPUJOB_MIGRATE_STATE", "")
+    if not spec or not job.checkpoint_dir:
+        return
+    try:
+        mjob, _, mstep_s = spec.rpartition(":")
+        mns, _, mname = mjob.partition("/")
+        mstep = int(mstep_s)
+    except ValueError:
+        log.warning("ignoring unparseable TPUJOB_MIGRATE_STATE=%r", spec)
+        return
+    store = get_store()
+    if store is None or not mns or not mname:
+        log.warning("TPUJOB_MIGRATE_STATE=%r: no artifact store or job "
+                    "key; resuming from the durable checkpoint", spec)
+        return
+    t = time.perf_counter()
+    got = fetch_state(store, state_fingerprint(mns, mname, mstep),
+                      job.checkpoint_dir, mstep)
+    result.setdefault("migrate_stages", {})["prestage_s"] = \
+        time.perf_counter() - t
+    if got is None:
+        log.warning("migration pre-stage miss for %s step %d; falling "
+                    "back to the durable checkpoint", mjob, mstep)
+        return
+    log.info("pre-staged %s step %d from the artifact store", mjob, mstep)
+    result["migrate_prefetched_step"] = mstep
+
+
+def _publish_move(job: TrainJob, intent: dict, step: int,
+                  result: Dict[str, Any]) -> None:
+    """The source's side of a MOVE, once the drain's cut has landed:
+    publish ``step`` as a state bundle under the intent's job key. A
+    missing key, checkpoint dir or store publishes nothing; the drain
+    stays clean either way."""
+    ns, name = str(intent.get("namespace", "")), str(intent.get("name", ""))
+    store = get_store()
+    if not (ns and name and job.checkpoint_dir) or store is None:
+        log.warning("MOVE at step %d publishes nothing (intent %r, "
+                    "store %s)", step, intent,
+                    "set" if store is not None else "unset")
+        return
+    t = time.perf_counter()
+    fp = publish_state(store, ns, name, step, job.checkpoint_dir)
+    result.setdefault("migrate_stages", {})["publish_s"] = \
+        time.perf_counter() - t
+    if fp is not None:
+        log.info("MOVE: published step %d of %s/%s", step, ns, name)
+        result["migrate_published"] = {"fp": fp, "step": step}
 
 
 def _cycle_mesh(axes: Optional[Dict[str, int]],
@@ -439,6 +550,13 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
                 return False
             result["drained"] = True
             result["drain_step"] = step
+            intent = drain.migrate_intent()
+            if intent is not None:
+                # a MOVE: the cut has landed (writer.wait above); a world
+                # of one publishes it, as the reference's one process does
+                result["drain_reason"] = "migrate"
+                if not multi and cfg.worker_id == 0:
+                    _publish_move(job, intent, step, result)
             break
     finally:
         loader.close()
