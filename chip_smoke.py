@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the eleven ported paths:
+path. Then it drives the twelve ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -71,12 +71,18 @@ path. Then it drives the eleven ported paths:
   step-10 dir under step 13's key: the bitwise loss gate fails). It
   prints the bundle's bytes, the publish, pre-stage and restore seconds
   and the blackout by part; gates in ``phase_train_migrate``.
+* train_tp: tensor parallelism, the reference's tp and fsdp rule tables
+  honoured by the train step: GPT-2 small at full depth on ``{"tp": 2}``
+  (two workers, B2 on each rank's 6 heads), at 2 layers on ``{"dp": 2,
+  "tp": 2}``, BERT-base (2 layers) on ``{"tp": 4}`` and phase train's
+  ResNet-50 job on ``{"dp": 2, "fsdp": 2}`` (four workers), each against
+  one process, with five planted faults; gates in ``phase_train_tp``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero without that last line. Without CUDA it exits 2. On a machine
-of four or more cards, phases train_sp and train_moe_ep run over NCCL,
-one card a worker.
+of four or more cards, phases train_sp, train_moe_ep and train_tp run
+over NCCL, one card a worker.
 """
 
 from __future__ import annotations
@@ -98,7 +104,7 @@ import numpy as np
 import torch
 
 from paddle_operator_tpu_torch import bridge, dp_check, elastic_check, \
-    migrate_check, moe_check, ps, ps_check, testing
+    migrate_check, moe_check, ps, ps_check, testing, tp_check
 from paddle_operator_tpu_torch.artifacts.server import ArtifactServer
 from paddle_operator_tpu_torch.artifacts.state import pack_state_dir, \
     state_fingerprint
@@ -643,7 +649,7 @@ def _flash_measure(rate: float) -> dict:
     lse_entry = {"shape": [2, 4, 512, 64], "causal": True,
                  "errors": errors, "chain": chain}
     sp = _flash_sp(SP_FLASH_CASES + ELASTIC_FLASH_CASES
-                   + MOE_EP_FLASH_CASES)
+                   + MOE_EP_FLASH_CASES + TP_FLASH_CASES)
 
     shape = (GPT_BATCH, gpt.BASE_CONFIG["heads"], GPT_SEQ,
              gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"])
@@ -1063,12 +1069,14 @@ def _train_profile(warm: int = 2, steps: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
 
+    job = migrate_check.resnet_job(dict(
+        depth=DEPTH, classes=CLASSES, image=IMAGE, batch=BATCH, steps=30,
+        schedule=30, device=DEVICE))
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    batch = resnet.synthetic_batch(gen, BATCH, IMAGE, CLASSES)
+    batch = job.make_batch(gen, 0)
     step_fn, state = build_train_step(
-        resnet.loss_fn, resnet_optimizer("fused_sgd", 30),
-        resnet.init(gen, DEPTH, CLASSES),
-        batch, merge_stats=resnet.merge_stats)
+        job.loss_fn, job.optimizer, job.init_params(gen), batch,
+        merge_stats=job.merge_stats)
     for _ in range(warm):
         step_fn(state, batch)
     with FlopCounterMode(display=False) as counter:
@@ -4220,6 +4228,262 @@ def phase_train_migrate(smi: str, train_losses: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_tp: tensor parallelism (tp, and ResNet's classifier over fsdp)
+# ---------------------------------------------------------------------------
+
+#: the runs' steps: (a) and (d) the first of their one-process phases'
+#: runs (train_gpt's 20, train's 30), (b) and (c) two, the planted faults
+#: two
+TP_STEPS = {"gpt_tp2": 3, "gpt_2layers_dp2_tp2": 2, "bert_2layers_tp4": 2,
+            "resnet50_dp2_fsdp2": 3}
+TP_FAULT_STEPS = 2
+#: |loss(workers) - loss(one process)| / loss allowed at each step: for
+#: GPT and BERT train_dp's GPT class (DP_GPT_RTOL; on an H100 80GB HBM3
+#: at 700 W (a) read 8.5e-6, (b) 1.7e-6, (c) 1.8e-6). For ResNet-50,
+#: phase train's job (lr 0.4): the class of ``tp_check --run
+#: resnet50_dp2_fsdp2`` over seeds 0-3 on the same card, where one
+#: process with its parameters one ulp up parted from itself by up to
+#: 3.1e-2 in 3 steps (6.1e-3, 6.8e-3, 9.3e-3, 3.1e-2) and the dp2 x fsdp2
+#: world by 9.8e-3, 1.3e-2, 1.6e-3, 2.5e-2; train_dp's 5e-3 was read at
+#: lr 0.01
+TP_LOSS_RTOL = {"gpt": DP_GPT_RTOL, "bert": DP_GPT_RTOL, "resnet": 3.5e-2}
+#: the same at step 0, before any update (the forward's rounding alone):
+#: ResNet's train_dp class, DP_RESNET_RTOL (the readings above: 2.9e-4 -
+#: 1.6e-3 for the world, 2.4e-4 - 1.1e-3 one ulp up)
+TP_LOSS0_RTOL = {"resnet": DP_RESNET_RTOL}
+#: step 0's gradients against one process's, each tile against its slice:
+#: the largest ||g - g_one|| / ||g_one|| over the leaves, by model. GPT
+#: and BERT: train_gpt's gradient class, GPT_GRAD_RTOL. ResNet's are read
+#: in fp32 compute (``tp_check.grad_job``: in bf16 one ulp of the
+#: parameters moves them by 0.99-1.11 over the tree). Its limit lies
+#: between the class of ``tp_check --run resnet50_dp2_fsdp2`` on an H100
+#: 80GB HBM3 at 700 W over seeds 0-3, where one process one ulp up parted
+#: from itself by up to 2.75e-2 - 3.1e-2 at its farthest leaf and the
+#: dp2 x fsdp2 world by 3.2e-2 - 4.1e-2 (1.6 times the ulp's at most,
+#: leaf by leaf), and the planted fault's lowest reading, 1.16
+TP_GRAD_RTOL = {"gpt": GPT_GRAD_RTOL, "bert": GPT_GRAD_RTOL, "resnet": 0.1}
+#: the run each planted fault (``tp_check.FAULTS``) is planted in, and the
+#: gate that must reject it
+TP_FAULTS = {"row_sum_dropped": ("gpt_2layers_dp2_tp2", "loss"),
+             "column_input_unsummed": ("gpt_2layers_dp2_tp2", "grads"),
+             "norm_without_tp": ("gpt_2layers_dp2_tp2", "replicas"),
+             "vocab_shifted": ("gpt_2layers_dp2_tp2", "loss"),
+             "fsdp_gather_slice": ("resnet50_dp2_fsdp2", "grads")}
+#: B2 at a tp rank's shapes: (a)'s 16 sequences on 6 of the 12 heads, and
+#: (b)'s dp block of 8 on 6
+TP_FLASH_CASES = tuple(
+    ("tp_rank", (b, gpt.BASE_CONFIG["heads"] // 2, GPT_SEQ,
+                 gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"]),
+     "bfloat16", True) for b in (GPT_BATCH, GPT_BATCH // 2))
+
+
+def tp_launches_per_step(run: str) -> dict:
+    """B1 and B2 launches of a rank a step on the tp path, from the code:
+    GPT's flash forward twice a layer (remat), dq and dkv once; ResNet's
+    one fused SGD update; BERT's mask takes the einsum path."""
+    model, layers, _, _ = tp_check.CARD_RUNS[run]
+    if model == "gpt":
+        return {"flash_fwd": 2 * layers, "flash_dq": layers,
+                "flash_dkv": layers, "fused_sgd": 0}
+    return {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "fused_sgd": int(model == "resnet")}
+
+
+def _tp_problems(name: str, lines: list, one: list) -> list:
+    """``(gate, message)`` of every gate a run of the phase fails: the
+    global loss (the ranks' mean) within TP_LOSS_RTOL of one process's at
+    every step (TP_LOSS0_RTOL at step 0); step 0's gradients within
+    TP_GRAD_RTOL; replicas (the
+    replicated leaves bitwise on every rank after every step and at the
+    end, each tile bitwise on its dp replicas; equal clip norms); B1 and
+    B2 launches of a rank a step; finite losses."""
+    run = lines[0]["run"]
+    model, _, axes, _ = tp_check.CARD_RUNS[run]
+    problems = []
+    steps = len(lines[0]["losses"])
+    losses = np.mean([r["losses"] for r in lines], axis=0).tolist()
+    rel = rel_diffs(losses, one)
+    if len(rel) != steps or not max(rel) <= TP_LOSS_RTOL[model] \
+            or not rel[0] <= TP_LOSS0_RTOL.get(model, TP_LOSS_RTOL[model]):
+        problems.append(("loss", "%s losses part from one process's by %r"
+                         % (name, rel)))
+    rep = [[p[0] for p in r["fingerprints"]] for r in lines]
+    same = all(x == rep[0] for x in rep) and len(
+        {r["replicated"] for r in lines}) == 1
+    per = len(lines) // axes.get("dp", 1)
+    for r in range(per, len(lines)):
+        same = same and [p[1] for p in lines[r]["fingerprints"]] == [
+            p[1] for p in lines[r % per]["fingerprints"]] and \
+            lines[r]["tiles"] == lines[r % per]["tiles"]
+    if len({tuple(r["grad_norms"]) for r in lines}) != 1:
+        same = False
+    if not same:
+        problems.append(("replicas", "%s replicas differ (clip norms %r)"
+                         % (name, [r["grad_norms"] for r in lines])))
+    want = {k: v * steps for k, v in tp_launches_per_step(run).items()}
+    for r in lines:
+        if not r["grads"]["max_rel_diff"] <= TP_GRAD_RTOL[model]:
+            problems.append(("grads", "%s rank %d's step-0 gradients part "
+                             "from one process's by %g at %s"
+                             % (name, r["rank"], r["grads"]["max_rel_diff"],
+                                r["grads"]["leaf"])))
+        if any(r["launches"][k] != v for k, v in want.items()):
+            problems.append(("launches", "%s rank %d launched %r, expected "
+                             "%r" % (name, r["rank"], r["launches"], want)))
+        if not r["split_leaves"]:
+            problems.append(("layout", "%s rank %d holds no tile"
+                             % (name, r["rank"])))
+        if not all(np.isfinite(x) for x in r["losses"]):
+            problems.append(("loss", "%s: a loss is not finite" % name))
+    return problems
+
+
+def _tp_scenarios(runs, grads: dict) -> list:
+    """The card scenarios of ``runs`` sound, and (for the four-worker
+    world) each planted fault in its run."""
+    out = [{"kind": "card", "name": run, "run": run, "steps": TP_STEPS[run],
+            "grads_ref": grads[run]} for run in runs]
+    for fault, (run, _) in TP_FAULTS.items():
+        if run in runs:
+            out.append({"kind": "card", "name": run + "_" + fault,
+                        "run": run, "steps": TP_FAULT_STEPS,
+                        "fault": fault, "grads_ref": grads[run]})
+    return out
+
+
+def phase_train_tp(smi: str, gpt_losses: list = None,
+                   resnet_losses: list = None) -> dict:
+    """Tensor parallelism through the port's path: the reference's
+    ``gpt_rules``, ``bert_rules`` and ``resnet_rules`` honoured by the
+    train step over tp and fsdp (each rank holds its tile of every split
+    leaf and of its optimizer state; Megatron's column- and row-parallel
+    layers, the vocabulary split by rows and columns, ResNet's classifier
+    gathered over fsdp), through ``run_training`` with the jobs'
+    ``mesh_axes`` set as the reference's tests set them, under the
+    one-process phases' numerics (TF32 off, deterministic cuDNN, and for
+    GPT and BERT deterministic algorithms):
+
+    (a) phase train_gpt's job (GPT-2 small at full width and depth, bf16,
+        remat, the chunked head, adamw) on ``{"tp": 2}``, two workers,
+        TP_STEPS steps, B2 on each rank's 6 heads, against train_gpt's
+        first losses (``gpt_losses``, or one process run here);
+    (b) the same at 2 layers on ``{"dp": 2, "tp": 2}``, four workers,
+        against one process of that job;
+    (c) BERT-base at 2 layers, 16 x 512, on ``{"tp": 4}`` (30522 does not
+        divide by 4: the vocabulary's leaves stay whole, every layer's
+        heads and MLP are split), against one process;
+    (d) phase train's ResNet-50 job (``migrate_check.resnet_job``, batch
+        128, ``fused_sgd``) on ``{"dp": 2, "fsdp": 2}``, against train's
+        first losses (``resnet_losses``, or one process run here);
+
+    and each planted fault of ``tp_check.FAULTS`` in (b) or (d), which its
+    gate (TP_FAULTS) must reject. The workers start through ``python -m
+    paddle_operator_tpu_torch.launch``; NCCL a card each where the
+    machine has a card a worker, else gloo on this card (a correctness
+    run, not a rate). Gates: :func:`_tp_problems`. Printed: the tp
+    collectives' count, bytes and host seconds a step, step ms a rank,
+    peak GB a rank and the phase's seconds."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    lines: list = []
+    backends = {}
+    try:
+        given = {"gpt_tp2": gpt_losses, "resnet50_dp2_fsdp2": resnet_losses}
+        refs = {run: tp_check.one_process(
+                    run, 0 if given.get(run) else TP_STEPS[run], tmp)
+                for run in tp_check.CARD_RUNS}
+        one = {run: (given.get(run) or r["losses"])[:TP_STEPS[run]]
+               for run, r in refs.items()}
+        grads = {run: r["grads"] for run, r in refs.items()}
+        torch.cuda.empty_cache()
+        t_world = time.perf_counter()
+        for world in (2, 4):
+            runs = [r for r, spec in tp_check.CARD_RUNS.items()
+                    if spec[3] == world]
+            backends[world] = "nccl" if torch.cuda.device_count() >= world \
+                else "gloo"
+            for rank_lines in tp_check.launch(
+                    {"out": os.path.join(tmp, "world%d" % world),
+                     "scenarios": _tp_scenarios(runs, grads)},
+                    world=world, backend=backends[world], timeout=900):
+                lines += rank_lines
+        world_s = time.perf_counter() - t_world
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs: dict = {}
+    for line in lines:
+        runs.setdefault(line["scenario"], []).append(line)
+    runs = {k: sorted(v, key=lambda r: r["rank"]) for k, v in runs.items()}
+    gates, summary = {}, {}
+    for name, rs in runs.items():
+        run = rs[0]["run"]
+        gates[name] = _tp_problems(name, rs, one[run][:len(rs[0]["losses"])])
+        steps = len(rs[0]["losses"])
+        losses = np.mean([r["losses"] for r in rs], axis=0).tolist()
+        summary[name] = {
+            "losses": losses, "one_process_losses": one[run],
+            "max_rel_loss_diff_vs_one_process": max(rel_diffs(losses,
+                                                              one[run])),
+            "grads": [r["grads"] for r in rs],
+            "grad_norms_rank0": rs[0]["grad_norms"],
+            "step_ms_median": [statistics.median(r["step_ms"][1:] or
+                                                 r["step_ms"]) for r in rs],
+            "tp_traffic_per_step": [
+                {k: v / steps for k, v in r["tp_traffic"].items()}
+                for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "expected_per_step": tp_launches_per_step(run),
+            "split_leaves": rs[0]["split_leaves"],
+            "peak_gb": [r["peak_gb"] for r in rs],
+            "mesh_history": [r["mesh_history"] for r in rs],
+            "wall_s": [r["wall_s"] for r in rs],
+            "gates_failed": sorted({g for g, _ in gates[name]})}
+    out = {"phase": "train_tp", "card": smi,
+           "backends": {str(k): v for k, v in backends.items()},
+           "note": "workers share this one card over gloo: a correctness "
+                   "check, not a multi-GPU rate"
+                   if "gloo" in backends.values() else "a card a worker",
+           "runs": summary,
+           "tolerance": {"loss_rel": TP_LOSS_RTOL,
+                         "step0_loss_rel": TP_LOSS0_RTOL,
+                         "grad_rel": TP_GRAD_RTOL},
+           "world_s": world_s, "seconds": time.perf_counter() - t0}
+    emit(out)
+    for name in tp_check.CARD_RUNS:
+        r = summary[name]
+        t = r["tp_traffic_per_step"][0]
+        print("train_tp %s (%s, %s): tp collectives a step a rank %d "
+              "(%d sums forward, %d backward, %d max, %d argmax, %d "
+              "gathers), %.1f MB, %.3f s host; step ms a rank %s; peak GB "
+              "%s; off one process by %.3g" % (
+                  name, smi, backends[tp_check.CARD_RUNS[name][3]],
+                  sum(t[k] for k in ("sum_forward", "sum_backward", "max",
+                                     "argmax", "gather")),
+                  t["sum_forward"], t["sum_backward"], t["max"],
+                  t["argmax"], t["gather"], t["bytes"] / 1e6, t["seconds"],
+                  ["%.1f" % x for x in r["step_ms_median"]],
+                  ["%.2f" % x for x in r["peak_gb"]],
+                  r["max_rel_loss_diff_vs_one_process"]), flush=True)
+    print("train_tp (%s): phase %.1f s, worlds %.1f s"
+          % (smi, out["seconds"], world_s), flush=True)
+    problems = []
+    for name, p in gates.items():
+        fault = runs[name][0]["fault"]
+        if fault:
+            if TP_FAULTS[fault][1] not in {g for g, _ in p}:
+                problems.append("the %s gate missed the planted fault %s"
+                                % (TP_FAULTS[fault][1], fault))
+        else:
+            problems += [msg for _, msg in p]
+    missing = set(tp_check.CARD_RUNS) - set(runs)
+    if missing:
+        problems.append("runs missing: %s" % sorted(missing))
+    if problems:
+        fail("train_tp: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4250,6 +4514,9 @@ def main() -> int:
         env["nvidia_smi"], moe_out["losses"]["kernels"][:MOE_EP_STEPS])
     migrate_out = phase_train_migrate(env["nvidia_smi"],
                                       train["losses"]["fused_sgd"])
+    tp_out = phase_train_tp(env["nvidia_smi"],
+                            train_gpt_out["losses"]["flash"],
+                            train["losses"]["fused_sgd"])
     # the MoE-ep path's launches, summed over the ranks of its sound runs
     moe_ep_launches = {
         k: sum(n[k] for name in MOE_EP_SOUND
@@ -4264,6 +4531,11 @@ def main() -> int:
                           ("gpt_restart", ("flash_fwd", "flash_dq",
                                            "flash_dkv")))
         for k in keys}
+    # the tp path's launches, summed over the ranks of its sound runs
+    tp_launches = {
+        k: sum(n[k] for name in tp_check.CARD_RUNS
+               for n in tp_out["runs"][name]["launches"])
+        for k in ("fused_sgd", "flash_fwd", "flash_dq", "flash_dkv")}
     paged_shapes = kernels["kernels"][0]["shapes"]
     full = next(s for s in paged_shapes if s["case"] == "full_width"
                 and s["q_dtype"] == s["kv_dtype"] == str(torch.float32))
@@ -4280,7 +4552,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": train_gpt_out["launches"]["flash"][key]
             + elastic_launches["flash_" + key]
-            + moe_ep_launches["flash_" + key],
+            + moe_ep_launches["flash_" + key] + tp_launches["flash_" + key],
             "max_abs_err": max(c["errors"][o]["max_abs_err"]
                                for c in cases for o in outputs),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -4322,7 +4594,11 @@ def main() -> int:
           "migrate_launches": {
               k: migrate_out["runs"][k]["launches"]["fused_sgd"]
               for k in ("source", "destination")},
-          "train_migrate_seconds": migrate_out["seconds"]})
+          "train_migrate_seconds": migrate_out["seconds"],
+          "tp_launches_per_rank": {
+              name: tp_out["runs"][name]["launches"]
+              for name in tp_check.CARD_RUNS},
+          "train_tp_seconds": tp_out["seconds"]})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -4336,7 +4612,7 @@ def main() -> int:
         "replaces": SGD_REPLACES,
         "launches": train["launches"]["fused_sgd"]
         + elastic_launches["fused_sgd"]
-        + migrate_out["launches"]["fused_sgd"],
+        + migrate_out["launches"]["fused_sgd"] + tp_launches["fused_sgd"],
         "max_abs_err": sgd["max_abs_err"], "ms": sgd["kernel_ms"],
         "plain_ms": sgd["plain_ms"], "bound_ms": sgd["bound_ms"],
         "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"]}]

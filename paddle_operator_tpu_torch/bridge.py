@@ -12,9 +12,11 @@ inside the tree), so a round trip is bit-equal.
 :func:`flatten` names each leaf by its path, ``"stages/0/1/conv2/kernel"``,
 exactly as the JAX package's checkpoint writer does (sorted dict keys,
 list indices), so checkpoints cross between the two packages.
-:func:`ep_slice` cuts a whole tree to what one rank of an ``ep`` mesh
-axis holds (its block of the expert leaves), so that a JAX-initialised
-tree starts an expert-parallel run of the port.
+:func:`tile_slice` cuts a whole tree to what one rank of any mesh holds
+under a rule set (its tile of every leaf the rules split), so that a
+JAX-initialised tree starts a tensor-, fully-sharded- or
+expert-parallel run of the port; :func:`ep_slice` is its case of an
+``ep`` axis alone.
 """
 
 from __future__ import annotations
@@ -95,19 +97,30 @@ def unflatten(struct: Any, flat: Dict[str, Any], prefix: str = "") -> Any:
     return flat[prefix[:-1]]
 
 
+def tile_slice(tree: Any, mesh_shape: Dict[str, int],
+               coords: Dict[str, int], rules: Any) -> Any:
+    """``tree`` (numpy or torch leaves) as the rank at ``coords`` (its
+    index along each axis) of a mesh of ``mesh_shape`` holds it: each
+    leaf that ``rules`` split (``parallel.sharding.shard_tree``'s choice)
+    cut to that rank's tile (``parallel.sharding.tile_of``), the others
+    as they are."""
+    from .parallel import sharding
+
+    specs = sharding.shard_tree(tree, mesh_shape, rules)
+    return unflatten(structure(tree), {
+        path: sharding.cut(leaf, sharding.tile_of(specs[path], mesh_shape,
+                                                  coords))
+        if sharding.tile_of(specs[path], mesh_shape, coords) else leaf
+        for path, leaf in flatten(tree).items()})
+
+
 def ep_slice(tree: Any, index: int, count: int, rules: Any = None) -> Any:
-    """``tree`` (numpy or torch leaves) as the rank at index ``index`` of
-    an ``ep`` axis of ``count`` holds it: each leaf that ``rules``
-    (default: ``parallel.sharding.moe_rules()``) split over ep cut to
-    block ``index`` of its leading axis, the others as they are."""
+    """``tree`` as the rank at index ``index`` of an ``ep`` axis of
+    ``count`` holds it (:func:`tile_slice` on ``{"ep": count}``): each
+    leaf that ``rules`` (default: ``parallel.sharding.moe_rules()``)
+    split over ep cut to block ``index`` of its leading axis, the others
+    as they are."""
     from .parallel import sharding
 
     rules = sharding.moe_rules() if rules is None else rules
-    specs = sharding.shard_tree(tree, {"ep": count}, rules)
-    out = {}
-    for path, leaf in flatten(tree).items():
-        if "ep" in sharding.split_axes(specs[path]).get(0, ()):
-            n = leaf.shape[0] // count
-            leaf = leaf[index * n:(index + 1) * n]
-        out[path] = leaf
-    return unflatten(structure(tree), out)
+    return tile_slice(tree, {"ep": count}, {"ep": index}, rules)

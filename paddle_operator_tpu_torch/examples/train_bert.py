@@ -14,8 +14,11 @@ no kernel of the port.
 
 Like the reference's example it has no MoE knob: BERT-base with MoE FFNs
 is a ``TrainJob`` over ``bert.init(dict(BASE_CONFIG, moe_experts=8,
-moe_every=2))``. The job carries the reference's rules, ``bert_rules()``
-(tp only: dropped on the port's meshes).
+moe_every=2))``. The job carries the reference's rules, ``bert_rules()``:
+on a mesh with a ``tp`` axis (a caller's ``mesh_axes``, e.g. ``{"tp":
+4}``) each worker holds its heads and MLP columns, and its tiles of the
+vocabulary where 30522 divides by tp (at tp 4 the embedding and the MLM
+decoder stay whole); on a mesh without tp they are dropped.
 """
 
 import logging

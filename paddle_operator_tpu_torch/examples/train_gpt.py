@@ -29,8 +29,11 @@ global batch under dp and dp x sp. The job carries the reference's rules,
 ``gpt_rules() + moe_rules()``: on a mesh with an ``ep`` axis (a caller's
 ``mesh_axes``, e.g. ``{"dp": 2, "ep": 2}``, as the reference's tests
 build it; there is no env knob for it) each worker holds its block of
-every MoE layer's experts; the tp rules are dropped on a mesh without
-tp.
+every MoE layer's experts, and on a mesh with a ``tp`` axis (``{"dp": 2,
+"tp": 2}``, again from the caller's ``mesh_axes``) each worker holds its
+heads, its MLP columns and its vocabulary tiles of the dense model and
+computes on them (Megatron's layout, :mod:`..parallel.train`); MoE layers
+under tp raise. The rules over an axis the mesh lacks are dropped.
 """
 
 import functools

@@ -12,9 +12,10 @@ momentum 0.9, weight decay 1e-4 and ``cosine_schedule(0.4, STEPS, STEPS
 // 20)``, synthetic batches, bf16 compute on fp32 master parameters.
 ``optim.fused_sgd`` is the drop-in that runs the update as one CUDA
 kernel launch per step. Under ``launch`` with several workers
-``run_training`` splits the batch over a ``dp`` mesh; the reference's
-``resnet_rules`` shard only over ``fsdp``, which a dp mesh lacks, so
-they are not carried.
+``run_training`` splits the batch over a ``dp`` mesh. The job carries the
+reference's ``resnet_rules()``: on a mesh with an ``fsdp`` axis (a
+caller's ``mesh_axes``, e.g. ``{"dp": 2, "fsdp": 2}``) each worker holds
+its columns of the classifier; a dp mesh lacks fsdp and drops them.
 """
 
 import logging
@@ -22,6 +23,7 @@ import os
 
 from paddle_operator_tpu_torch.models import resnet
 from paddle_operator_tpu_torch.ops import optim
+from paddle_operator_tpu_torch.parallel import sharding
 from paddle_operator_tpu_torch.runner import TrainJob, run_training
 
 BATCH = int(os.environ.get("TPUJOB_BATCH", "128"))
@@ -43,6 +45,7 @@ def make_job() -> TrainJob:
         total_steps=STEPS,
         steps_per_call=STEPS_PER_CALL,
         checkpoint_dir=os.environ.get("TPUJOB_CHECKPOINT_DIR", ""),
+        rules=sharding.resnet_rules(),
     )
 
 

@@ -49,6 +49,7 @@ from paddle_operator_tpu_torch.device import resolve_device
 from paddle_operator_tpu_torch.launch import detect_env
 from paddle_operator_tpu_torch.models import resnet
 from paddle_operator_tpu_torch.ops import _kernels, optim
+from paddle_operator_tpu_torch.parallel import sharding
 from paddle_operator_tpu_torch.runner import TrainJob, run_training
 
 
@@ -105,7 +106,9 @@ def resnet_job(sc: dict, optimizer: Optional[optim.Optimizer] = None,
     ``sc["batch"]`` synthetic images of ``sc["image"]`` pixels a side
     from ``(seed 0, step)`` (or ``make_batch``), bf16 compute on fp32
     params, ``optimizer`` or else ``resnet_optimizer("fused_sgd",
-    sc["schedule"])``, ``sc["steps"]`` steps."""
+    sc["schedule"])``, ``sc["steps"]`` steps, on the mesh ``sc["mesh"]``
+    (default: none, or dp over a world of several) with the reference's
+    ``resnet_rules()`` (the classifier split over an fsdp axis)."""
     depth, classes = sc["depth"], sc["classes"]
     image, batch = sc["image"], sc["batch"]
     return TrainJob(
@@ -116,7 +119,8 @@ def resnet_job(sc: dict, optimizer: Optional[optim.Optimizer] = None,
         make_batch=make_batch or (lambda gen, step: resnet.synthetic_batch(
             gen, batch, image, classes)),
         merge_stats=resnet.merge_stats, total_steps=sc["steps"],
-        log_every=10, seed=0, device=sc.get("device"))
+        log_every=10, seed=0, device=sc.get("device"),
+        mesh_axes=sc.get("mesh"), rules=sharding.resnet_rules())
 
 
 def make_job(sc: dict) -> TrainJob:

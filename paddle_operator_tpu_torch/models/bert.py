@@ -23,6 +23,16 @@ Under a mesh the loss's denominator is the global batch's: each rank
 divides its masked sum by the mean of the token group's mask sums, so
 that the ranks' losses averaged over the batch axis are the reference's
 loss on the global batch whatever the mask puts on each rank.
+
+Under tensor parallelism (``bert_rules`` on a ``tp`` axis:
+:func:`..parallel.collectives.model_tiles`) the encoder layers run on
+this rank's heads and MLP columns as GPT's blocks do
+(:func:`..ops.nn.split_group`), the token embedding is a vocabulary-parallel
+lookup, and the MLM decoder ``[D, V/n]`` with its bias ``[V/n]`` gives
+this rank's columns of the logits, whose loss takes the
+vocabulary-parallel pieces. A vocabulary that does not divide by tp
+(BERT-base's 30522 at tp 4) leaves those three leaves whole, and the
+loss takes the plain path.
 """
 
 from __future__ import annotations
@@ -91,21 +101,24 @@ def init(generator: torch.Generator, config: Optional[dict] = None) -> Dict:
 def _encoder_layer(layer: Dict, x: torch.Tensor,
                    mask: Optional[torch.Tensor], dtype: torch.dtype,
                    attn_impl: Any = "auto",
-                   split: Optional[collectives.Split] = None
+                   split: Optional[collectives.Split] = None,
+                   prefix: str = ""
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Post-LN encoder layer: ln1(x + attn(x)), then ln2(x + ffn(x)).
     Returns ``(x, aux)``, aux the MoE load-balancing loss (0 for a dense
-    FFN)."""
-    y = nn.mha(layer["attn"], x, mask, dtype=dtype, impl=attn_impl)
+    FFN). ``prefix``: the layer's path (``layers/3/``), for its tiles."""
+    y = nn.mha(layer["attn"], x, mask, dtype=dtype, impl=attn_impl,
+               tp=nn.split_group(split, prefix + "attn/", nn.MHA_TILES))
     x = nn.layernorm(layer["ln1"], x + y, dtype=dtype)
     aux = torch.zeros((), dtype=F32, device=x.device)
     if "moe" in layer:
         y, moe_aux = moe_apply(layer["moe"], x, dtype=dtype, split=split)
         aux = aux + moe_aux["moe_aux_loss"]
     else:
-        y = nn.dense(layer["mlp"]["fc1"], x, dtype=dtype)
+        tp = nn.split_group(split, prefix + "mlp/", nn.MLP_TILES)
+        y = nn.column_dense(layer["mlp"]["fc1"], x, dtype, tp)
         y = nn.gelu(y)
-        y = nn.dense(layer["mlp"]["fc2"], y, dtype=dtype)
+        y = nn.row_dense(layer["mlp"]["fc2"], y, dtype, tp)
     return nn.layernorm(layer["ln2"], x + y, dtype=dtype), aux
 
 
@@ -121,7 +134,9 @@ def encode(params: Dict, input_ids: torch.Tensor,
     tokens' positions (default ``arange(S)``; a block of a sequence split
     over ranks passes its global positions)."""
     _, s = input_ids.shape
-    x = nn.embedding(params["embed"]["tok"], input_ids, dtype)
+    split = collectives.moe_split()
+    x = nn.embedding(params["embed"]["tok"], input_ids, dtype,
+                     split.tile("embed/tok/table"))
     if positions is None:
         positions = torch.arange(s, device=input_ids.device)
     x = x + nn.embedding(params["embed"]["pos"], positions[None, :], dtype)
@@ -135,15 +150,16 @@ def encode(params: Dict, input_ids: torch.Tensor,
         mask = attention_mask[:, None, None, :].bool()
 
     aux = torch.zeros((), dtype=F32, device=input_ids.device)
-    split = collectives.moe_split()
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
+        prefix = "layers/%d/" % li
         if remat:
             x, layer_aux = checkpoint(_encoder_layer, layer, x, mask, dtype,
-                                      attn_impl, split, use_reentrant=False,
+                                      attn_impl, split, prefix,
+                                      use_reentrant=False,
                                       preserve_rng_state=False)
         else:
             x, layer_aux = _encoder_layer(layer, x, mask, dtype, attn_impl,
-                                          split)
+                                          split, prefix)
         aux = aux + layer_aux
     return x, aux
 
@@ -151,11 +167,15 @@ def encode(params: Dict, input_ids: torch.Tensor,
 def mlm_logits(params: Dict, hidden: torch.Tensor,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The MLM head: transform, gelu, LayerNorm, then the decoder in fp32
-    -> ``[B, S, V]`` fp32 logits."""
+    -> ``[B, S, V]`` fp32 logits; with the decoder split over tp
+    (:func:`..parallel.collectives.model_tiles`), this rank's columns
+    ``[B, S, V/n]``."""
     y = nn.dense(params["mlm"]["transform"], hidden, dtype)
     y = nn.gelu(y)
     y = nn.layernorm(params["mlm"]["ln"], y, dtype=dtype)
-    return nn.dense(params["mlm"]["decoder"], y, dtype=F32)
+    tp = nn.split_group(collectives.moe_split(), "mlm/decoder/",
+                        ("kernel", "bias"))
+    return nn.column_dense(params["mlm"]["decoder"], y, F32, tp)
 
 
 def loss_fn(params: Dict, batch: Dict, train: bool = True,
@@ -170,16 +190,24 @@ def loss_fn(params: Dict, batch: Dict, train: bool = True,
                              batch.get("attention_mask"), dtype=dtype,
                              remat=remat, attn_impl=attn_impl)
     logits = mlm_logits(params, hidden, dtype)
-    logp = torch.log_softmax(logits.float(), dim=-1)
     labels = batch["labels"].long()
-    picked = logp.gather(-1, labels[..., None])[..., 0]
+    tile = collectives.moe_split().tile("mlm/decoder/kernel")
+    if tile is not None:
+        lse, picked, argmax = nn.xent_pieces(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), tile)
+        picked = (picked - lse).reshape(labels.shape)
+        argmax = argmax.reshape(labels.shape)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        picked = logp.gather(-1, labels[..., None])[..., 0]
+        argmax = logits.argmax(dim=-1)
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=F32, device=labels.device)
             if mask is None else mask.to(F32))
     denom = torch.clamp(global_mean(torch.sum(mask)), min=1.0)
     loss = -torch.sum(picked * mask) / denom
     loss = loss + moe_aux_weight * moe_aux
-    acc = torch.sum((logits.argmax(dim=-1) == labels).to(F32) * mask) / denom
+    acc = torch.sum((argmax == labels).to(F32) * mask) / denom
     return loss, {"accuracy": acc, "moe_aux": moe_aux}
 
 

@@ -30,6 +30,18 @@ its final position), and the whole sequence's mask sum as denominator,
 so the blocks' losses and accuracies add up to the replica's. Attention
 across blocks is the caller's ``attn_impl`` (ring or Ulysses attention
 over the same axis).
+
+Under tensor parallelism (the train step's ``tp`` axis with
+``gpt_rules``: :func:`..parallel.collectives.model_tiles`) each rank
+holds the tiles the rules split: its heads of each attention layer and
+its columns of ``fc1`` (column-parallel), the matching rows of ``o`` and
+``fc2`` (row-parallel, their biases added once after the sum over tp),
+its rows of the token embedding (a vocabulary-parallel lookup) and its
+columns of the LM head (a vocabulary-parallel cross-entropy, no
+``[tokens, V]`` logits gathered). Which leaves are split comes from the
+step's layout in :attr:`..parallel.collectives.Split.tiles`, a leaf at a
+time (:func:`..ops.nn.split_group`), since a rule whose dimension does
+not divide falls back to replicated.
 """
 
 from __future__ import annotations
@@ -89,14 +101,17 @@ def init(generator: torch.Generator, config: Optional[dict] = None) -> Dict:
 
 def _block(layer: Dict, x: torch.Tensor, dtype: torch.dtype, attn_impl: Any,
            positions: Optional[torch.Tensor],
-           split: Optional[collectives.Split] = None
+           split: Optional[collectives.Split] = None, prefix: str = ""
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-LN decoder block: x + attn(ln1 x); x + ffn(ln2 x). Returns
-    ``(x, aux)``, aux the MoE load-balancing loss (0 for a dense FFN)."""
+    ``(x, aux)``, aux the MoE load-balancing loss (0 for a dense FFN).
+    ``prefix``: the layer's path in the tree (``layers/3/``), for its
+    tiles in ``split``."""
     causal = not callable(attn_impl)  # callables (ring/ulysses) own masking
     y = nn.mha(layer["attn"], nn.layernorm(layer["ln1"], x, dtype=dtype),
                dtype=dtype, impl=attn_impl, causal=causal, use_rope=True,
-               positions=positions)
+               positions=positions,
+               tp=nn.split_group(split, prefix + "attn/", nn.MHA_TILES))
     x = x + y
     z = nn.layernorm(layer["ln2"], x, dtype=dtype)
     aux = torch.zeros((), dtype=F32, device=x.device)
@@ -104,9 +119,10 @@ def _block(layer: Dict, x: torch.Tensor, dtype: torch.dtype, attn_impl: Any,
         z, moe_aux = moe_apply(layer["moe"], z, dtype=dtype, split=split)
         aux = aux + moe_aux["moe_aux_loss"]
     else:
-        z = nn.dense(layer["mlp"]["fc1"], z, dtype=dtype)
+        tp = nn.split_group(split, prefix + "mlp/", nn.MLP_TILES)
+        z = nn.column_dense(layer["mlp"]["fc1"], z, dtype, tp)
         z = nn.gelu(z)
-        z = nn.dense(layer["mlp"]["fc2"], z, dtype=dtype)
+        z = nn.row_dense(layer["mlp"]["fc2"], z, dtype, tp)
     return x + z, aux
 
 
@@ -118,17 +134,20 @@ def encode(params: Dict, input_ids: torch.Tensor,
     """Backbone up to (but excluding) the LM head: [B, S] ids -> ([B, S,
     D] final-LN hidden states in ``dtype``, the layers' MoE aux loss summed
     in fp32)."""
-    x = nn.embedding(params["embed"]["tok"], input_ids, dtype)
-    aux = torch.zeros((), dtype=F32, device=input_ids.device)
     split = collectives.moe_split()
-    for layer in params["layers"]:
+    x = nn.embedding(params["embed"]["tok"], input_ids, dtype,
+                     split.tile("embed/tok/table"))
+    aux = torch.zeros((), dtype=F32, device=input_ids.device)
+    for li, layer in enumerate(params["layers"]):
+        prefix = "layers/%d/" % li
         if remat:
             x, layer_aux = checkpoint(_block, layer, x, dtype, attn_impl,
-                                      positions, split, use_reentrant=False,
+                                      positions, split, prefix,
+                                      use_reentrant=False,
                                       preserve_rng_state=False)
         else:
             x, layer_aux = _block(layer, x, dtype, attn_impl, positions,
-                                  split)
+                                  split, prefix)
         aux = aux + layer_aux
     return nn.layernorm(params["final_ln"], x, dtype=dtype), aux
 
@@ -139,9 +158,14 @@ def apply(params: Dict, input_ids: torch.Tensor,
           positions: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """input_ids: [B, S] -> (logits [B, S, V] in fp32 (the LM head runs in
-    fp32, as the reference's), MoE aux loss)."""
+    fp32, as the reference's), MoE aux loss). With the LM head split over
+    tp (:func:`..parallel.collectives.model_tiles`), this rank's columns
+    ``[B, S, V/n]``."""
     x, aux = encode(params, input_ids, dtype=dtype, remat=remat,
                     attn_impl=attn_impl, positions=positions)
+    tile = collectives.moe_split().tile("lm_head/kernel")
+    if tile is not None:
+        return nn.column_dense(params["lm_head"], x, F32, tile.group), aux
     return nn.dense(params["lm_head"], x, dtype=F32), aux
 
 
@@ -189,26 +213,34 @@ def loss_fn(params: Dict, batch: Dict, train: bool = True,
         mask = mask[:, start:start + s_local]
     n_labels = labels.shape[1]
 
+    tile = collectives.moe_split().tile("lm_head/kernel")
     if ce_chunk:
         hidden, moe_aux = encode(params, ids, dtype=dtype, remat=remat,
                                  attn_impl=attn_impl, positions=positions)
         loss, acc = nn.chunked_lm_xent(params["lm_head"],
                                        hidden[:, :n_labels], labels,
                                        mask=mask, chunk=ce_chunk,
-                                       dtype=dtype, denom=denom)
+                                       dtype=dtype, denom=denom, tile=tile)
         loss = loss + moe_aux_weight * moe_aux
         return loss, {"accuracy": acc, "moe_aux": moe_aux}
 
     logits, moe_aux = apply(params, ids, dtype=dtype, remat=remat,
                             attn_impl=attn_impl, positions=positions)
     logits = logits[:, :n_labels]
-    logp = torch.log_softmax(logits, dim=-1)
-    picked = logp.gather(-1, labels[..., None])[..., 0]
     if denom is None:
         denom = torch.clamp(torch.sum(mask), min=1.0)
+    if tile is not None:
+        lse, picked, argmax = nn.xent_pieces(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), tile)
+        picked = (picked - lse).reshape(labels.shape)
+        argmax = argmax.reshape(labels.shape)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        picked = logp.gather(-1, labels[..., None])[..., 0]
+        argmax = logits.argmax(dim=-1)
     loss = -torch.sum(picked * mask) / denom
     loss = loss + moe_aux_weight * moe_aux
-    acc = torch.sum((logits.argmax(dim=-1) == labels).to(F32) * mask) / denom
+    acc = torch.sum((argmax == labels).to(F32) * mask) / denom
     return loss, {"accuracy": acc, "moe_aux": moe_aux}
 
 

@@ -9,6 +9,12 @@ running stats live inside the tree; :func:`apply` returns
 ``(logits, stats)`` with ``stats`` mapping flat paths to new
 ``{mean, var}``, which :func:`merge_stats` folds in after the optimizer
 step.
+
+Under an ``fsdp`` axis with ``resnet_rules`` (the train step's
+:func:`..parallel.collectives.model_tiles`) the classifier's kernel is
+this rank's columns ``[2048, classes/n]``: the head is column-parallel,
+its tiles of the logits gathered over fsdp and the replicated bias added
+after the gather. The fsdp ranks see the same images.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..ops import nn
+from ..parallel import collectives
 
 # depth -> (block counts, bottleneck?)
 CONFIGS = {
@@ -119,7 +126,14 @@ def apply(params: Dict, x: torch.Tensor, train: bool = True,
             y = relu(z + shortcut)
 
     pooled = nn.global_avg_pool(y)
-    logits = nn.dense(params["head"]["fc"], pooled, dtype=torch.float32)
+    tile = collectives.moe_split().tile("head/fc/kernel")
+    if tile is None:
+        logits = nn.dense(params["head"]["fc"], pooled, dtype=torch.float32)
+    else:
+        fc = params["head"]["fc"]
+        logits = collectives.gather_last(nn.column_dense(
+            {"kernel": fc["kernel"]}, pooled, torch.float32, tile.group),
+            tile) + fc["bias"].float()
     return logits, stats
 
 

@@ -92,13 +92,15 @@ def _fault_patch(fault: str):
             lambda: collectives.Split(expert=orig().expert)
     if fault == "ep_x_cotangent":
         orig = collectives.sum_backward
-        # the dispatched tokens are [T, D]; the gate [T] keeps its sum
+        # the dispatched tokens are [T, D]; the gate [T] keeps its sum,
+        # and the tp layers' inputs (their own traffic) theirs
         return collectives, "sum_backward", \
-            lambda x, group: x if x.dim() == 2 else orig(x, group)
+            lambda x, group, traffic=None: x \
+            if x.dim() == 2 and traffic is None else orig(x, group, traffic)
     if fault == "norm_without_ep":
         orig = train_step._global_norm
         return train_step, "_global_norm", \
-            lambda grads, expert, group: orig(grads, expert, None)
+            lambda grads, groups: orig(grads, dict.fromkeys(groups))
     raise ValueError("unknown fault %r" % fault)
 
 
@@ -182,7 +184,7 @@ def _moe(sc: dict, rank: int, size: int) -> Dict[str, Any]:
         loss = moe_loss(out, aux["moe_aux_loss"])
         grads = torch.autograd.grad(loss, [x] + list(params.values()))
     named = dict(zip(params, grads[1:]))
-    experts = {k for k in named if k in ("wi", "wo")}
+    experts = {k: ("ep",) for k in named if k in ("wi", "wo")}
     reduced = bridge.flatten(train_step.reduce_step_grads(
         bridge.unflatten(bridge.structure(tree), named), mesh, 1, experts))
     return {"out": out.detach().numpy(), "aux": aux["moe_aux_loss"]
@@ -216,7 +218,7 @@ def _step(sc: dict, rank: int, size: int) -> Dict[str, Any]:
                                        mesh=mesh, rules=rules,
                                        grad_clip=sc.get("clip"))
         state, m = step(state, batch)
-    experts = set(step.expert_layout)
+    experts = set(step.layout)
     flat = bridge.flatten(state)
     return {"loss": m["loss"].numpy(), "grad_norm": m["grad_norm"].numpy(),
             "moe_aux": m["moe_aux"].numpy(),
@@ -262,11 +264,11 @@ def _restore(sc: dict, rank: int, size: int) -> Dict[str, Any]:
         job.make_batch(torch.Generator().manual_seed(0), 0), mesh=mesh,
         rules=job.rules, grad_clip=job.grad_clip)
     restored, _ = restore_latest(sc["ckpt"], group=mesh.control)
-    load_into(state, restored, step.expert_layout)
+    load_into(state, restored, step.layout)
     return {"state": bridge.params_to_numpy(state)}
 
 
-class _Losses:
+class Losses:
     """A job's loss wrapped: each call's loss, kept on the device."""
 
     def __init__(self, loss_fn) -> None:
@@ -284,7 +286,7 @@ def _job(sc: dict, rank: int, size: int) -> Dict[str, Any]:
     from paddle_operator_tpu_torch.examples import train_gpt
 
     job = train_gpt.make_job(sc["env"])
-    rec = job.loss_fn = _Losses(job.loss_fn)
+    rec = job.loss_fn = Losses(job.loss_fn)
     job.device = "cpu"
     out = run_training(job)
     return {"losses": torch.stack(rec.losses).float().numpy(),
@@ -335,26 +337,35 @@ def card_job(run: str, steps: int, seed: int = 0) -> TrainJob:
 
 
 @contextlib.contextmanager
-def card_setting():
-    """The card runs' numerics: TF32 off, deterministic algorithms (the
-    embedding's index backward is atomic otherwise), the MoE kernels."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
+def card_setting(deterministic: bool = True):
+    """The card runs' numerics, as the one-process phases run: TF32 off,
+    deterministic cuDNN without autotuning (phase train), the MoE
+    kernels, and with ``deterministic`` deterministic algorithms (phase
+    train_gpt: the embedding's index backward is atomic otherwise;
+    ResNet's pooling backward has no deterministic kernel)."""
+    cudnn = torch.backends.cudnn
+    saved = (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
+             cudnn.deterministic, cudnn.benchmark,
              torch.are_deterministic_algorithms_enabled(),
              os.environ.get("TPUJOB_MOE_FUSED"))
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = \
+        False, True, False
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
     os.environ["TPUJOB_MOE_FUSED"] = "1"
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved[0]
-        torch.use_deterministic_algorithms(saved[1])
-        if saved[2] is None:
+        (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
+         cudnn.deterministic, cudnn.benchmark) = saved[:4]
+        torch.use_deterministic_algorithms(saved[4])
+        if saved[5] is None:
             os.environ.pop("TPUJOB_MOE_FUSED", None)
         else:
-            os.environ["TPUJOB_MOE_FUSED"] = saved[2]
+            os.environ["TPUJOB_MOE_FUSED"] = saved[5]
 
 
 @contextlib.contextmanager
@@ -381,30 +392,34 @@ def first_route(log: list):
 def step0(job: TrainJob, mesh=None, routes: Optional[list] = None):
     """Step 0's gradients of ``job`` on the card (its parameters and
     first global batch as ``run_training`` draws them), reduced as the
-    train step reduces them; under a mesh this rank's block, its experts'
-    gradients only. Returns ``{leaf: grad}`` and the expert layout."""
+    train step reduces them; under a mesh this rank's block, its tiles'
+    gradients only (the leaves its rules split over ep, tp or fsdp).
+    Returns ``{leaf: grad}`` and ``{leaf: LeafTile}`` of the split
+    parameter leaves."""
     dev = resolve_device(None, "moe_check.step0")
     params = job.init_params(torch.Generator(device=dev).manual_seed(
         job.seed))
     batch = job.make_batch(step_generator(job.seed, 0, dev), 0)
-    layout, shards = {}, 1
+    tiles, shards = {}, 1
     if mesh is not None:
         batch = process_shard(batch, mesh.axis_rank("dp"),
                               mesh.axis_size("dp"))
-        layout = {k[len("params/"):]: v for k, v in
-                  train_step.expert_layout(params, job.optimizer, mesh,
-                                           job.rules).items()
-                  if k.startswith("params/")}
-        flat = bridge.flatten(params)
-        for k, where in layout.items():
-            flat[k] = train_step.local_block(flat[k], where)
-        params = bridge.unflatten(bridge.structure(params), flat)
+        tiles = train_step.layout(params, job.optimizer, mesh, job.rules)
         shards = mesh.axis_size(job.seq_axis) if job.seq_axis else 1
-    with train_step.shard_contexts(mesh, "dp", job.seq_axis), \
+    layout = {k[len("params/"):]: v for k, v in tiles.items()
+              if k.startswith("params/")}
+    flat = bridge.flatten(params)
+    for k, where in layout.items():
+        flat[k] = train_step.local_block(flat[k], where)
+    params = bridge.unflatten(bridge.structure(params), flat)
+    with train_step.shard_contexts(
+            mesh, "dp", job.seq_axis,
+            train_step.model_tiles(mesh, tiles) if tiles else None), \
             first_route(routes if routes is not None else []):
         _, grads = train_step._grads_of(bind_mesh(job.loss_fn, mesh),
                                         params, batch)
-    grads = train_step.reduce_step_grads(grads, mesh, shards, set(layout))
+    grads = train_step.reduce_step_grads(
+        grads, mesh, shards, {k: t.axes for k, t in layout.items()})
     return {k: g for k, g in bridge.flatten(grads).items()
             if g is not None}, layout
 
@@ -451,7 +466,7 @@ class _Recorder:
     def __call__(self, params, batch, mesh=None):
         if self.experts is None:
             self.experts = {k[len("params/"):] for k in
-                            train_step.expert_layout(
+                            train_step.layout(
                                 params, self.job.optimizer, mesh,
                                 self.job.rules, local=True)
                             if k.startswith("params/")}

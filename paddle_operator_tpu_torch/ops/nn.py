@@ -246,6 +246,73 @@ def dense(params: Params, x: torch.Tensor,
     return y
 
 
+#: the leaves under an mha's and an MLP's paths that one tp group splits
+#: together: the attention's heads, the MLP's hidden units
+MHA_TILES = ("q/kernel", "q/bias", "k/kernel", "k/bias", "v/kernel",
+             "v/bias", "o/kernel")
+MLP_TILES = ("fc1/kernel", "fc1/bias", "fc2/kernel")
+
+
+def split_group(split: Optional[collectives.Split], prefix: str,
+                names: Sequence[str]) -> collectives.Group:
+    """The group the leaves ``prefix + name`` are split over
+    (:attr:`..parallel.collectives.Split.tiles`), ``None`` when every one
+    is whole; raises if only some are split (a layer cannot compute on
+    such a mix)."""
+    tiles = [split.tile(prefix + n) if split is not None else None
+             for n in names]
+    if all(t is None for t in tiles):
+        return None
+    if any(t is None for t in tiles):
+        raise NotImplementedError(
+            "the leaves %s under %r are split only in part (%s); a layer "
+            "computes on all of them split or none" % (
+                list(names), prefix, [t is not None for t in tiles]))
+    return tiles[0].group
+
+
+def column_dense(params: Params, x: torch.Tensor, dtype: torch.dtype,
+                 group: collectives.Group) -> torch.Tensor:
+    """A column-parallel dense layer (Megatron's): ``params`` hold this
+    rank's columns of the kernel and of the bias, and the replicated
+    input goes through :func:`..parallel.collectives.sum_backward`, so
+    its gradient sums the ranks' parts. Without a group, :func:`dense`."""
+    return dense(params, collectives.sum_backward(
+        x, group, collectives.tp_traffic), dtype)
+
+
+def row_parallel(x: torch.Tensor, kernel: torch.Tensor,
+                 bias: Optional[torch.Tensor], dtype: torch.dtype,
+                 group: collectives.Group) -> torch.Tensor:
+    """A row-parallel product: ``x`` ``[..., K/n]`` times this rank's
+    rows ``kernel`` ``[K/n, out]``, in fp32 from ``dtype`` operands, summed
+    over ``group`` in fp32, rounded once to ``dtype``, and then the
+    replicated ``bias`` added once. One process's cuBLAS product
+    accumulates in fp32 and rounds once; the fp32 sum keeps the split
+    product closest to it. Without a group, the plain product."""
+    if collectives.size(group) == 1:
+        y = torch.matmul(x.to(dtype), kernel.to(dtype))
+    else:
+        lead = x.shape[:-1]
+        a, b = x.reshape(-1, x.shape[-1]).to(dtype), kernel.to(dtype)
+        y = (torch.matmul(a, b) if dtype == torch.float32
+             else _MatmulF32.apply(a, b))
+        y = collectives.sum_forward(y, group, collectives.tp_traffic)
+        y = y.reshape(*lead, kernel.shape[-1]).to(dtype)
+    if bias is not None:
+        y = y + bias.to(dtype)
+    return y
+
+
+def row_dense(params: Params, x: torch.Tensor, dtype: torch.dtype,
+              group: collectives.Group) -> torch.Tensor:
+    """A row-parallel dense layer: this rank's rows of the kernel, its
+    slice of the input, the bias (replicated) after the sum
+    (:func:`row_parallel`)."""
+    return row_parallel(x, params["kernel"], params.get("bias"), dtype,
+                        group)
+
+
 # ---------------------------------------------------------------------------
 # normalization
 # ---------------------------------------------------------------------------
@@ -275,7 +342,13 @@ def embedding_init(generator: torch.Generator, vocab: int, dim: int,
 
 
 def embedding(params: Params, ids: torch.Tensor,
-              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+              dtype: torch.dtype = torch.bfloat16,
+              tile: Optional[collectives.Tile] = None) -> torch.Tensor:
+    """``table[ids]`` in ``dtype``; with ``tile``, the table is this rank's
+    rows of a vocabulary split over ``tile.group``
+    (:func:`..parallel.collectives.vocab_lookup`)."""
+    if tile is not None:
+        return collectives.vocab_lookup(params["table"], ids, tile, dtype)
     return params["table"][ids].to(dtype)
 
 
@@ -323,9 +396,18 @@ def mha(params: Dict, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         dtype: torch.dtype = torch.bfloat16,
         impl: Union[str, Callable] = "einsum", causal: bool = False,
         use_rope: bool = False,
-        positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        positions: Optional[torch.Tensor] = None,
+        tp: collectives.Group = None) -> torch.Tensor:
     """Multi-head self-attention, BSHD layout, with the reference's
     dispatch.
+
+    ``tp``: the heads are split over this group (Megatron's layout):
+    ``params`` hold this rank's heads, the q/k/v kernels ``[dim, H/n,
+    head_dim]`` and biases ``[H/n, head_dim]`` (column-parallel, the input
+    through :func:`..parallel.collectives.sum_backward`), attention runs
+    on ``[B, H/n, S, head_dim]``, and the output projection is
+    row-parallel over its ``[H/n, head_dim, dim]`` kernel, the bias added
+    after the sum (:func:`row_parallel`).
 
     impl: "einsum" (the default), "flash" (:func:`.attention.flash_attention`:
     kernels B2 on CUDA tensors, their plain versions on the CPU), "auto"
@@ -335,6 +417,8 @@ def mha(params: Dict, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
     :func:`.attention.supports` holds. On the einsum path a boolean
     ``mask`` (broadcast to ``[B, H, Q, K]``) and the causal mask set
     masked scores to ``finfo(dtype).min``."""
+    x = collectives.sum_backward(x, tp, collectives.tp_traffic)
+
     def proj(p: Params) -> torch.Tensor:
         return (torch.einsum("bsd,dhk->bshk", x.to(dtype),
                              p["kernel"].to(dtype)) + p["bias"].to(dtype))
@@ -350,7 +434,7 @@ def mha(params: Dict, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 "causal inside the callable")
         ctx = impl(q.transpose(1, 2), k.transpose(1, 2),
                    v.transpose(1, 2)).transpose(1, 2)
-        return _out_proj(params, ctx, dtype)
+        return _out_proj(params, ctx, dtype, tp)
 
     use_flash = False
     if impl in ("flash", "auto") and mask is None:
@@ -377,12 +461,19 @@ def mha(params: Dict, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
             scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
         probs = torch.softmax(scores.float(), dim=-1).to(dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return _out_proj(params, ctx, dtype)
+    return _out_proj(params, ctx, dtype, tp)
 
 
-def _out_proj(params: Dict, ctx: torch.Tensor,
-              dtype: torch.dtype) -> torch.Tensor:
-    """MHA output projection: [B, S, H, D] context -> [B, S, dim]."""
+def _out_proj(params: Dict, ctx: torch.Tensor, dtype: torch.dtype,
+              tp: collectives.Group = None) -> torch.Tensor:
+    """MHA output projection: [B, S, H, D] context -> [B, S, dim];
+    row-parallel over ``tp`` (this rank's heads)."""
+    if collectives.size(tp) > 1:
+        b, s, h, d = ctx.shape
+        kernel = params["o"]["kernel"]
+        return row_parallel(ctx.reshape(b, s, h * d),
+                            kernel.reshape(h * d, kernel.shape[-1]),
+                            params["o"]["bias"], dtype, tp)
     return (torch.einsum("bqhd,hdo->bqo", ctx, params["o"]["kernel"].to(dtype))
             + params["o"]["bias"].to(dtype))
 
@@ -436,10 +527,17 @@ def chunked_lm_xent(head_params: Params, hidden: torch.Tensor,
                     labels: torch.Tensor,
                     mask: Optional[torch.Tensor] = None, chunk: int = 1024,
                     dtype: torch.dtype = torch.bfloat16,
-                    denom: Optional[torch.Tensor] = None
+                    denom: Optional[torch.Tensor] = None,
+                    tile: Optional[collectives.Tile] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy through a big-vocab LM head without materialising the
     ``[tokens, vocab]`` logits (the reference's ``chunked_lm_xent``).
+
+    ``tile``: the head kernel is this rank's columns ``[D, V/n]`` of a
+    vocabulary split over ``tile.group`` (and a bias its slice): each
+    chunk's per-token log-sum-exp, picked logit and argmax come from
+    :func:`..parallel.collectives.vocab_xent_pieces`, and the hidden
+    states' gradient is summed over the group.
 
     Tokens are padded to whole chunks; each chunk runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
@@ -451,6 +549,9 @@ def chunked_lm_xent(head_params: Params, hidden: torch.Tensor,
     given, replaces the mask's sum as the divisor (a sequence block's part
     of the whole sequence's mean)."""
     d = hidden.shape[-1]
+    if tile is not None:
+        hidden = collectives.sum_backward(hidden, tile.group,
+                                          collectives.tp_traffic)
     flat_h = hidden.reshape(-1, d)
     flat_l = labels.reshape(-1).long()
     n = flat_h.shape[0]
@@ -470,9 +571,8 @@ def chunked_lm_xent(head_params: Params, hidden: torch.Tensor,
                   else _MatmulF32.apply(h, kernel))
         if bias is not None:
             logits = logits + bias.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, l[:, None])[:, 0]
-        correct = (logits.argmax(dim=-1) == l).float()
+        lse, picked, argmax = xent_pieces(logits, l, tile)
+        correct = (argmax == l).float()
         return torch.sum((lse - picked) * m), torch.sum(correct * m)
 
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -487,3 +587,16 @@ def chunked_lm_xent(head_params: Params, hidden: torch.Tensor,
     if denom is None:
         denom = torch.clamp(torch.sum(flat_m), min=1.0)
     return loss_sum / denom, acc_sum / denom
+
+
+def xent_pieces(logits: torch.Tensor, labels: torch.Tensor,
+                tile: Optional[collectives.Tile] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(lse, picked, argmax)`` of ``[N, V]`` fp32 logits and ``[N]``
+    labels; with ``tile``, of logits split by columns over ``tile.group``
+    (:func:`..parallel.collectives.vocab_xent_pieces`)."""
+    if tile is not None:
+        return collectives.vocab_xent_pieces(logits, labels, tile)
+    return (torch.logsumexp(logits, dim=-1),
+            logits.gather(-1, labels[:, None])[:, 0],
+            logits.argmax(dim=-1))

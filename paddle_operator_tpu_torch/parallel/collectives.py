@@ -28,7 +28,18 @@ JAX package's dp-sharded train step, written out for
   and :func:`sum_backward` (the identity whose backward is an all-reduce
   sum) are the conjugate pair a layer replicated over a group uses
   around a part each rank computes only a share of; :func:`sum_` and
-  :func:`sum_counts` reduce without a gradient.
+  :func:`sum_counts` reduce without a gradient;
+* the collectives of tensor parallelism (tp, and ResNet's classifier over
+  fsdp): :func:`model_tiles` sets the leaves split over a model axis for
+  the layers (:class:`Tile`: the group over the leaf's axes and this
+  rank's tile), which :func:`moe_split` hands on in :attr:`Split.tiles`;
+  a column-parallel layer's input goes through :func:`sum_backward`, a
+  row-parallel layer's output through :func:`sum_forward` (Megatron's
+  two conjugate operators); :func:`vocab_lookup` is an embedding over a
+  vocabulary split by rows, :func:`vocab_xent_pieces` the log-sum-exp,
+  the picked logit and the argmax of logits split by columns, and
+  :func:`gather_last` joins column tiles with the rank's slice as its
+  backward. :data:`tp_traffic` counts their collectives.
 
 Under a sequence axis each rank's loss and gradients are parts of its
 replica's (``shards`` ranks hold the blocks of one sequence), so
@@ -57,7 +68,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -422,21 +433,54 @@ def expert_shards(group: Group):
         _EXPERT_GROUP.reset(token)
 
 
+class Tile(NamedTuple):
+    """A leaf split over model axes (tp, fsdp) as this rank holds it:
+    ``group`` the ranks that hold its other tiles (the group over the
+    leaf's axes), ``index`` this rank's tile of ``count`` along the one
+    dimension the rule splits."""
+
+    group: Group
+    index: int
+    count: int
+
+
+_MODEL_TILES: contextvars.ContextVar = contextvars.ContextVar(
+    "model_tiles", default=None)
+
+
+@contextlib.contextmanager
+def model_tiles(tiles: Optional[Dict[str, Tile]]):
+    """While the block runs, the parameter leaves (paths of
+    :func:`..bridge.flatten`) in ``tiles`` are this rank's tiles of
+    leaves split over a model axis: the train step sets it around the
+    loss, and :func:`moe_split` hands it to every layer. A rule that fell
+    back to replicated (a dimension that does not divide) leaves its
+    leaf out, so a layer reads the split from here, never from a local
+    shape."""
+    token = _MODEL_TILES.set(tiles or None)
+    try:
+        yield
+    finally:
+        _MODEL_TILES.reset(token)
+
+
 class Split(NamedTuple):
-    """How a MoE layer's tokens and experts lie over the ranks, read in
-    the forward and handed to every layer (remat's recompute reruns a
+    """How a layer's tokens, experts and weights lie over the ranks, read
+    in the forward and handed to every layer (remat's recompute reruns a
     layer in the autograd engine's thread, where the contexts are not
     set): ``batch`` the ranks holding distinct tokens, ``batch_index``
     this rank's block of the batch axis among them, ``seq`` the ranks
     holding blocks of the same sequences (``seq_index`` this rank's),
     ``expert`` the ranks holding the same tokens and splitting the
-    experts."""
+    experts, ``tiles`` the leaves split over tp or fsdp
+    (:func:`model_tiles`)."""
 
     batch: Group = None
     batch_index: int = 0
     seq: Group = None
     seq_index: int = 0
     expert: Group = None
+    tiles: Optional[Dict[str, Tile]] = None
 
     @property
     def batch_blocks(self) -> int:
@@ -444,11 +488,16 @@ class Split(NamedTuple):
         blocks."""
         return size(self.batch) // size(self.seq)
 
+    def tile(self, path: str) -> Optional[Tile]:
+        """The :class:`Tile` of parameter leaf ``path``, ``None`` when this
+        rank holds it whole."""
+        return (self.tiles or {}).get(path)
+
 
 def moe_split() -> Split:
     """The :class:`Split` the contexts of :func:`sync_batch`,
-    :func:`sequence_shards` and :func:`expert_shards` describe (every
-    field empty outside them)."""
+    :func:`sequence_shards`, :func:`expert_shards` and
+    :func:`model_tiles` describe (every field empty outside them)."""
     group, index = _BATCH_GROUP.get()
     seq_index, seqs = seq_block()
     if _alone(group):
@@ -457,7 +506,8 @@ def moe_split() -> Split:
         index = dist.get_rank(group) // seqs
     expert = _EXPERT_GROUP.get()
     return Split(group, index, None if seqs == 1 else _SEQ_GROUP.get(),
-                 seq_index, None if _alone(expert) else expert)
+                 seq_index, None if _alone(expert) else expert,
+                 _MODEL_TILES.get())
 
 
 def sum_(t: torch.Tensor, group: Group) -> torch.Tensor:
@@ -472,13 +522,25 @@ def sum_(t: torch.Tensor, group: Group) -> torch.Tensor:
 moe_traffic = {"routing": 0, "sum_forward": 0, "sum_backward": 0,
                "bytes": 0, "seconds": 0.0}
 
+#: the tensor-parallel collectives since the last reset: the row-parallel
+#: and vocabulary sums of the forward, the column-parallel inputs' sums of
+#: the backward, the vocabulary max and argmax and the fsdp gathers, their
+#: bytes (this rank's send) and host seconds
+tp_traffic = {"sum_forward": 0, "sum_backward": 0, "max": 0, "argmax": 0,
+              "gather": 0, "bytes": 0, "seconds": 0.0}
 
-def _timed_sum(kind: str, t: torch.Tensor, group: Group) -> torch.Tensor:
+
+def _count(traffic: dict, kind: str, t: torch.Tensor, t0: float) -> None:
+    traffic[kind] += 1
+    traffic["bytes"] += t.numel() * t.element_size()
+    traffic["seconds"] += time.perf_counter() - t0
+
+
+def _timed_sum(kind: str, t: torch.Tensor, group: Group,
+               traffic: Optional[dict] = None) -> torch.Tensor:
     t0 = time.perf_counter()
     sum_(t, group)
-    moe_traffic[kind] += 1
-    moe_traffic["bytes"] += t.numel() * t.element_size()
-    moe_traffic["seconds"] += time.perf_counter() - t0
+    _count(moe_traffic if traffic is None else traffic, kind, t, t0)
     return t
 
 
@@ -498,12 +560,14 @@ class _SumForward(torch.autograd.Function):
     cotangent on as it is (each rank already holds the whole one)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group: Group) -> torch.Tensor:
-        return _timed_sum("sum_forward", x.contiguous().clone(), group)
+    def forward(ctx, x: torch.Tensor, group: Group,
+                traffic: Optional[dict]) -> torch.Tensor:
+        return _timed_sum("sum_forward", x.contiguous().clone(), group,
+                          traffic)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return grad, None
+        return grad, None, None
 
 
 class _SumBackward(torch.autograd.Function):
@@ -511,29 +575,129 @@ class _SumBackward(torch.autograd.Function):
     (each rank computed the part of it its share reaches)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group: Group) -> torch.Tensor:
-        ctx.group = group
+    def forward(ctx, x: torch.Tensor, group: Group,
+                traffic: Optional[dict]) -> torch.Tensor:
+        ctx.group, ctx.traffic = group, traffic
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         return _timed_sum("sum_backward",
-                          grad.contiguous().clone(), ctx.group), None
+                          grad.contiguous().clone(), ctx.group,
+                          ctx.traffic), None, None
 
 
-def sum_forward(x: torch.Tensor, group: Group) -> torch.Tensor:
+def sum_forward(x: torch.Tensor, group: Group,
+                traffic: Optional[dict] = None) -> torch.Tensor:
     """``x`` summed over ``group``, with the identity as its backward:
     the output of a part each rank computes a share of, consumed by a
-    replicated rest. The identity for a group of one."""
+    replicated rest (a row-parallel layer's output). Counted in
+    ``traffic`` (default :data:`moe_traffic`). The identity for a group
+    of one."""
     if _alone(group):
         return x
-    return _SumForward.apply(x, group)
+    return _SumForward.apply(x, group, traffic)
 
 
-def sum_backward(x: torch.Tensor, group: Group) -> torch.Tensor:
+def sum_backward(x: torch.Tensor, group: Group,
+                 traffic: Optional[dict] = None) -> torch.Tensor:
     """``x`` as it is, with a sum over ``group`` as its backward: a
-    replicated input of a part each rank computes a share of. The
-    identity for a group of one."""
+    replicated input of a part each rank computes a share of (a
+    column-parallel layer's input). Counted in ``traffic`` (default
+    :data:`moe_traffic`). The identity for a group of one."""
     if _alone(group):
         return x
-    return _SumBackward.apply(x, group)
+    return _SumBackward.apply(x, group, traffic)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor, tile: Tile,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """An embedding lookup when ``table`` is row tile ``tile.index`` of a
+    vocabulary split over ``tile.group``: ids outside this rank's rows
+    look up nothing (zeros), the rows are cast to ``dtype`` and summed
+    over the group. Exact, since one rank contributes each token; the
+    backward reaches only this rank's rows."""
+    rows = table.shape[0]
+    local = ids - tile.index * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[torch.where(inside, local, 0)].to(dtype) * inside[..., None]
+    return sum_forward(x, tile.group, tp_traffic)
+
+
+def _reduce_no_grad(kind: str, t: torch.Tensor, group: Group,
+                    op) -> torch.Tensor:
+    t0 = time.perf_counter()
+    t = t.detach().contiguous().clone()
+    dist.all_reduce(t, op=op, group=group)
+    _count(tp_traffic, kind, t, t0)
+    return t
+
+
+def vocab_xent_pieces(logits: torch.Tensor, labels: torch.Tensor,
+                      tile: Tile) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """``(lse, picked, argmax)`` of each row of ``[N, V]`` fp32 logits
+    whose columns ``logits`` ``[N, V/n]`` are tile ``tile.index`` of
+    ``n``: the log-sum-exp (the max over the group without a gradient,
+    then the sum of exponentials over it), the logit at each global
+    ``labels`` id (from the rank that holds it) and the global argmax
+    (ties go to the lowest global index, as ``torch.argmax``'s do). The
+    first two are differentiable and the same on every rank; no
+    ``[N, V]`` tensor is gathered."""
+    group = tile.group
+    cols = logits.shape[-1]
+    start = tile.index * cols
+    top, where = logits.detach().max(dim=-1)
+    m = _reduce_no_grad("max", top, group, dist.ReduceOp.MAX)
+    sumexp = torch.exp(logits - m[:, None]).sum(dim=-1)
+    lse = m + torch.log(sum_forward(sumexp, group, tp_traffic))
+    local = labels - start
+    inside = (local >= 0) & (local < cols)
+    picked = logits.gather(-1, torch.where(inside, local, 0)[:, None])[:, 0]
+    picked = sum_forward(picked * inside, group, tp_traffic)
+    first = torch.where(top == m, where + start,
+                        torch.full_like(where, 2 ** 62))
+    argmax = _reduce_no_grad("argmax", first, group, dist.ReduceOp.MIN)
+    return lse, picked, argmax
+
+
+def last_tile(grad: torch.Tensor, index: int, count: int) -> torch.Tensor:
+    """Tile ``index`` of ``count`` of ``grad``'s last dimension: the
+    backward of :func:`gather_last`."""
+    return grad.chunk(count, dim=-1)[index].contiguous()
+
+
+class _GatherLast(torch.autograd.Function):
+    """The ranks' tiles joined along the last dimension; the backward is
+    this rank's slice of the cotangent (every rank holds the whole one,
+    consumed by a replicated rest)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, tile: Tile) -> torch.Tensor:
+        ctx.tile = tile
+        t0 = time.perf_counter()
+        staged = _gloo_staged(tile.group, x)
+        send = x.detach().contiguous()
+        send = send.cpu() if staged else send
+        parts = [torch.empty_like(send) for _ in range(tile.count)]
+        dist.all_gather(parts, send, group=tile.group)
+        out = torch.cat(parts, dim=-1)
+        _count(tp_traffic, "gather", send, t0)
+        return out.to(x.device) if staged else out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return last_tile(grad, ctx.tile.index, ctx.tile.count), None
+
+
+def gather_last(x: torch.Tensor, tile: Tile) -> torch.Tensor:
+    """Column tiles ``x`` ``[..., C/n]`` of the ranks of ``tile.group``
+    joined into ``[..., C]`` (in tile order), with this rank's slice of
+    the cotangent as the backward. The identity for a group of one."""
+    if _alone(tile.group):
+        return x
+    return _GatherLast.apply(x, tile)

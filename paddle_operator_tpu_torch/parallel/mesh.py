@@ -2,9 +2,10 @@
 ``make_mesh`` and ``mesh_from_env``, over processes.
 
 The port runs one process per card, so a mesh axis spans processes of
-the ``torch.distributed`` world. ``dp``, ``sp`` and ``ep`` are ported: an
-axis of any other name with a size above 1 raises (ROADMAP A9 holds tp,
-fsdp and pipeline meshes).
+the ``torch.distributed`` world. ``dp``, ``sp``, ``ep``, ``tp`` and
+``fsdp`` are ported: an axis of any other name with a size above 1 (the
+pipeline's ``pp``) raises, as does a multislice ``TPUJOB_DCN_MESH``
+(ROADMAP A5 holds both).
 
 Ranks are laid out as the reference lays out devices: row-major over the
 axes in dict order, so with ``{"dp": 2, "sp": 2}`` (dp outermost, sp
@@ -14,10 +15,11 @@ BatchNorm, the checkpoint) and, for every axis, the process group of the
 ranks that differ from this one only along it (:meth:`Mesh.axis_group`):
 the ring and the all-to-alls of sequence parallelism run on the sp
 group, the batch split takes the dp coordinate, the ep group sums a MoE
-layer's local experts. :meth:`Mesh.group_over` gives the group of the
+layer's local experts, the tp group sums a row-parallel layer's partial
+products and the fsdp group gathers ResNet's classifier. :meth:`Mesh.group_over` gives the group of the
 ranks that differ from this one only along several axes: the ranks that
-hold distinct tokens (every axis but ep) or that hold the same expert
-shard (the same). An axis set that spans the whole world uses the world
+hold distinct tokens (every axis but the model axes ep, tp and fsdp) or
+that hold the same tile of a split leaf (every axis but the leaf's own). An axis set that spans the whole world uses the world
 group itself, one of size 1 none. A process that never joined a group
 (one worker) gets a mesh with no group, whose collectives are the
 identity.
@@ -39,7 +41,7 @@ from typing import Dict, Optional, Tuple
 import torch.distributed as dist
 
 #: the mesh axes the port has ported
-PORTED_AXES = ("dp", "sp", "ep")
+PORTED_AXES = ("dp", "sp", "ep", "tp", "fsdp")
 
 
 @dataclass(frozen=True)
@@ -186,9 +188,9 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     for name, size in axes.items():
         if name not in PORTED_AXES and size > 1:
             raise NotImplementedError(
-                "mesh axis %r of size %d: the port shards over dp, sp and "
-                "ep only; tp, fsdp and pipeline meshes wait for ROADMAP A9"
-                % (name, size))
+                "mesh axis %r of size %d: the port shards over %s only; "
+                "pipeline meshes wait for ROADMAP A5"
+                % (name, size, ", ".join(PORTED_AXES)))
     if not dist.is_initialized():
         return Mesh(axes)
     group = dist.group.WORLD
@@ -214,6 +216,6 @@ def mesh_from_env(world: Optional[int] = None) -> Mesh:
     if parse(os.environ.get("TPUJOB_DCN_MESH", "")):
         raise NotImplementedError(
             "TPUJOB_DCN_MESH (multislice hybrid meshes) is not ported; "
-            "ROADMAP A9")
+            "ROADMAP A5")
     return make_mesh(parse(os.environ.get("TPUJOB_MESH", "")) or None,
                      world)

@@ -10,16 +10,16 @@ mesh lacks are dropped (one rule set serves many meshes), and a leaf whose
 dimensions do not divide by the axes left falls back to replicated.
 
 There is no GSPMD here: :func:`shard_tree` only says which dimension of
-each leaf is split over which axis. The train step (:mod:`.train`) uses
-it to hold a rank's slice of the leaves split over ``ep`` (the expert
-weights of ``moe_rules``); a rule over another axis of the mesh is
-refused there.
+each leaf is split over which axis, and :func:`tile_of` which block of
+each such dimension a rank holds. The train step (:mod:`.train`) uses
+them to hold a rank's tile of every leaf the rules split (over ``ep``,
+``tp`` or ``fsdp``), and the models' layers compute on those tiles.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 from .. import bridge
 
@@ -93,6 +93,47 @@ def rule_spec(path: str, rules: Optional[Rules],
 def split_axes(spec: Spec) -> Dict[int, Tuple[str, ...]]:
     """``{dimension: axis names}`` of the dimensions ``spec`` splits."""
     return {i: _names(a) for i, a in enumerate(spec) if a is not None}
+
+
+def tile_of(spec: Spec, mesh_shape: Dict[str, int],
+            coords: Dict[str, int]) -> Dict[int, Tuple[int, int]]:
+    """``{dimension: (index, count)}``: the block of each dimension that
+    ``spec`` splits over axes of size above 1 held by the rank at
+    ``coords`` (its index along each axis). An entry of several axes
+    counts row-major over them in the entry's order, as ``NamedSharding``
+    lays out its devices: ``("dp", "tp")`` on ``{"dp": 2, "tp": 4}`` puts
+    the rank at dp 1, tp 2 on block 6 of 8. Empty for a replicated
+    leaf."""
+    out = {}
+    for dim, names in split_axes(spec).items():
+        index, count = 0, 1
+        for name in names:
+            size = mesh_shape.get(name, 1)
+            index = index * size + coords.get(name, 0)
+            count *= size
+        if count > 1:
+            out[dim] = (index, count)
+    return out
+
+
+class LeafTile(NamedTuple):
+    """A rank's tile of a leaf the rules split: ``blocks`` its
+    ``{dimension: (index, count)}`` (:func:`tile_of`), ``axes`` the mesh
+    axes the leaf is split over (the ranks along every other axis hold
+    the same tile)."""
+
+    blocks: Dict[int, Tuple[int, int]]
+    axes: Tuple[str, ...]
+
+
+def cut(leaf: Any, tile: Dict[int, Tuple[int, int]]) -> Any:
+    """Block ``tile`` (:func:`tile_of`) of ``leaf`` (a tensor or an array:
+    a view)."""
+    index = [slice(None)] * len(leaf.shape)
+    for dim, (i, n) in tile.items():
+        size = leaf.shape[dim] // n
+        index[dim] = slice(i * size, (i + 1) * size)
+    return leaf[tuple(index)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The train step: the port of ``paddle_operator_tpu/parallel/train.py``'s
-``build_train_step``, on one device or data-parallel over a ``dp`` mesh of
-processes (:mod:`.mesh`).
+``build_train_step``, on one device or over a mesh of processes
+(:mod:`.mesh`).
 
 ``step_fn(state, batch) -> (state, metrics)`` computes the loss and its
 grads with autograd, optionally clips them, applies the optimizer and then
@@ -19,18 +19,29 @@ norm; the loss and metrics are averaged so every rank reports the
 global batch's. The state is broadcast from rank 0 at build, and stays
 identical on every rank from then on.
 
-Under an ``ep`` axis (expert parallelism, ``rules`` with ``moe_rules``)
-the leaves the rules split over ``ep`` (:func:`expert_layout`: the
-expert weights and their optimizer state) hold this rank's block of
-their leading axis from the build on; every other leaf is replicated.
-The batch is split over dp only, as the reference's ``batch_spec``
-splits it: the ep ranks hold the same tokens, and each MoE layer runs
-its local experts and sums the outputs over ep (``ops/moe.py``). The
-replicated leaves' gradients take the world mean as before; an expert
-leaf's is averaged over the ranks that hold the same shard (every axis
-but ep), and the clip's global norm adds the expert leaves' squares
-summed over ep, so every rank clips by the same norm. Rules over any
-other axis of the mesh raise (ROADMAP A9).
+Under the model axes ``ep``, ``tp`` and ``fsdp`` (``rules`` such as
+``moe_rules``, ``gpt_rules``, ``bert_rules`` or ``resnet_rules``) each
+leaf the rules split holds this rank's tile from the build on, on
+whatever dimension the rule splits (:func:`layout`: the reference's
+``shard_tree`` choice on the parameters and on the optimizer state, and
+:func:`.sharding.tile_of`); every other leaf is replicated. The batch is
+split over dp only, as the reference's ``batch_spec`` splits it: the
+ranks along a model axis hold the same tokens (the same images under
+fsdp), so the token group of sync BatchNorm, BERT's mask count and MoE
+routing leaves the model axes out. The layers compute on their tiles and
+write out the collectives GSPMD inserts into the reference's program: a
+MoE layer sums its local experts over ep; a column-parallel layer's
+input sums its gradient over tp, and a row-parallel layer's output its
+partial products; the vocabulary is split by rows and by columns;
+ResNet's classifier is gathered over fsdp. The layers read the split
+leaves from :func:`.collectives.model_tiles`. The replicated leaves'
+gradients take the world mean as before; a split leaf's is averaged
+over the ranks that hold the same tile (every axis but its own), and
+the clip's global norm adds each split leaf's squares summed over its
+axes, so every rank clips by the same norm. What the port does not hold
+raises ``NotImplementedError`` naming ROADMAP A5: tp or fsdp together
+with sp or ep, MoE layers under tp, rules over another axis, and rules
+over tp or fsdp that no layer computes on (the CTR tables).
 
 Under ``seq_axis`` (sequence parallelism over a ``dp`` x ``sp`` mesh) the
 batch is split over the batch axis only: a rank's block is its dp block
@@ -56,8 +67,17 @@ from ..ops.optim import Optimizer, clip_by_global_norm, global_norm
 from . import collectives, sharding
 from .mesh import Mesh
 
-#: the mesh axis whose rules the port honours: expert parallelism
+#: the mesh axis of expert parallelism
 EXPERT_AXIS = "ep"
+#: the mesh axes the rules split parameter leaves over; the ranks along
+#: them hold the same tokens
+MODEL_AXES = ("ep", "tp", "fsdp")
+#: the rules over tp and fsdp the models' layers compute on: the
+#: reference's GPT, BERT and ResNet tables (a rule over those axes outside
+#: them, such as ``ctr_rules``, would leave a tile no layer reads)
+HONOURED_RULES = frozenset(
+    (rx, tuple(spec)) for rx, spec in sharding.gpt_rules()
+    + sharding.bert_rules() + sharding.resnet_rules())
 
 
 def _grads_of(loss_fn: Callable, params: Any, batch: Any):
@@ -97,60 +117,93 @@ def batch_axis_of(accum_steps: int = 1, steps_per_call: int = 1) -> int:
 
 
 def _check_mesh(mesh: Mesh, rules: Any, batch_axis: str,
-                seq_axis: Optional[str]) -> None:
+                seq_axis: Optional[str], params: Any) -> None:
     """Refuse what the port cannot shard: a sequence axis or a batch axis
-    the mesh lacks, and rules that name an axis of the mesh other than
-    ``ep``, or ``ep`` on another than a leaf's leading axis. Rules whose
-    axes are all missing from the mesh mean "replicated", as the
-    reference's rule tables do there."""
+    the mesh lacks; rules that split over an axis of the mesh other than
+    the model axes, ``ep`` on another than a leaf's leading axis, and
+    rules over tp or fsdp outside :data:`HONOURED_RULES`; tp or fsdp above
+    1 together with sp or ep above 1; MoE layers (``moe/`` leaves) with tp
+    above 1. Rules whose axes are all missing from the mesh mean
+    "replicated", as the reference's rule tables do there."""
     if seq_axis is not None and seq_axis not in mesh.shape:
         raise NotImplementedError(
             "seq_axis=%r is not an axis of the mesh %s: sequence "
             "parallelism splits the sequence over an sp axis of the mesh "
-            "(ROADMAP A9 holds the others)" % (seq_axis, mesh.shape))
-    if batch_axis not in mesh.shape:
+            "(ROADMAP A5 holds the others)" % (seq_axis, mesh.shape))
+    tensor = [a for a in ("tp", "fsdp") if mesh.axis_size(a) > 1]
+    beside = [a for a in ("sp", EXPERT_AXIS) if mesh.axis_size(a) > 1]
+    if tensor and beside:
+        raise NotImplementedError(
+            "mesh %s: %s together with %s is not ported (ROADMAP A5)"
+            % (mesh.shape, " and ".join(tensor), " and ".join(beside)))
+    if batch_axis not in mesh.shape and any(
+            a not in MODEL_AXES for a in mesh.shape):
+        # a mesh of model axes alone (``{"tp": 4}``) splits no batch
         raise ValueError("batch axis %r is not an axis of the mesh %s"
                          % (batch_axis, mesh.shape))
+    if mesh.axis_size("tp") > 1 and any(
+            "/moe/" in "/" + k for k in bridge.flatten(params)):
+        raise NotImplementedError(
+            "MoE layers under tp (mesh %s) are not ported (ROADMAP A5)"
+            % (mesh.shape,))
     for pattern, spec in rules or ():
         for dim, axis in enumerate(spec):
             names = axis if isinstance(axis, tuple) else (axis,)
             for name in names:
-                if name is None or name not in mesh.shape:
+                if name is None or mesh.axis_size(name) == 1:
                     continue
-                if name != EXPERT_AXIS:
+                if name not in MODEL_AXES:
                     raise NotImplementedError(
-                        "sharding rule %r shards over mesh axis %r; the "
-                        "port shards parameters over ep only (ROADMAP A9)"
-                        % (pattern, name))
-                if dim != 0:
+                        "sharding rule %r splits over mesh axis %r; the port "
+                        "splits parameters over %s only (ROADMAP A5)"
+                        % (pattern, name, ", ".join(MODEL_AXES)))
+                if name == EXPERT_AXIS and dim != 0:
                     raise NotImplementedError(
                         "sharding rule %r splits dimension %d over ep; the "
-                        "port splits a leaf's leading (expert) axis only"
-                        % (pattern, dim))
+                        "port splits a leaf's leading (expert) axis only "
+                        "(ROADMAP A5)" % (pattern, dim))
+                if name != EXPERT_AXIS and (
+                        pattern, tuple(spec)) not in HONOURED_RULES:
+                    raise NotImplementedError(
+                        "sharding rule %r over %r: no layer of the port "
+                        "computes on such a tile (ROADMAP A5)"
+                        % (pattern, name))
 
 
-def expert_layout(params: Any, optimizer: Optimizer,
-                  mesh: Optional[Mesh], rules: Any, local: bool = False
-                  ) -> Dict[str, Tuple[int, int]]:
-    """``{state leaf path: (this rank's ep index, ep size)}`` for the
-    leaves of the train state ``{"params", "opt"}`` that ``rules`` split
-    over ``ep`` on ``mesh``: the reference's ``shard_tree`` choice on the
-    parameters and, separately, on the optimizer state's shapes (made on
-    the meta device). ``local``: ``params`` are a live state's, the
-    expert leaves already this rank's blocks. Empty without an ep axis
-    above 1."""
-    if mesh is None or not rules or mesh.axis_size(EXPERT_AXIS) == 1:
+def layout(params: Any, optimizer: Optimizer, mesh: Optional[Mesh],
+           rules: Any, local: bool = False) -> Dict[str, sharding.LeafTile]:
+    """``{state leaf path: LeafTile}`` for the leaves of the train state
+    ``{"params", "opt"}`` that ``rules`` split over axes of ``mesh`` of
+    size above 1: the reference's ``shard_tree`` choice on the parameters
+    and, separately, on the optimizer state's shapes (made on the meta
+    device), and this rank's block of each split dimension
+    (:func:`.sharding.tile_of`). ``local``: ``params`` are a live state's
+    on a mesh whose model axis is ep alone, and a leaf counts as split
+    when its rule fits the shape its tile makes (an ep rule splits the
+    leading expert axis, whose whole size its tile reads back). Under tp
+    or fsdp a leaf whose rule fell back can have the shape of a tile
+    (BERT-base's 30522-row table at tp 4 reads as 122088 rows, which
+    divide by 4): there ``local`` raises, and the build's layout
+    (``step_fn.layout``) is what tells. Empty without a model axis above
+    1."""
+    if mesh is None or not rules or all(
+            mesh.axis_size(a) == 1 for a in MODEL_AXES):
         return {}
-    where = (mesh.axis_rank(EXPERT_AXIS), mesh.axis_size(EXPERT_AXIS))
-
-    def splits(spec) -> bool:
-        return spec is not None and EXPERT_AXIS in sharding.split_axes(
-            spec).get(0, ())
+    if local and any(mesh.axis_size(a) > 1 for a in ("tp", "fsdp")):
+        raise ValueError(
+            "the layout of a live state on mesh %s cannot be read from its "
+            "shapes: a leaf whose tp or fsdp rule fell back looks like a "
+            "tile; pass the build's layout (step_fn.layout)" % (mesh.shape,))
+    coords = mesh.coords()
 
     def whole(path: str, p: torch.Tensor) -> torch.Tensor:
-        shape = tuple(p.shape)
-        if local and splits(sharding.rule_spec(path, rules, mesh.shape)):
-            shape = (shape[0] * where[1],) + shape[1:]
+        shape = list(p.shape)
+        spec = sharding.rule_spec(path, rules, mesh.shape)
+        if local and spec is not None:
+            for dim, (_, n) in sharding.tile_of(spec, mesh.shape,
+                                                coords).items():
+                if dim < len(shape):
+                    shape[dim] *= n
         return torch.empty(shape, dtype=p.dtype, device="meta")
 
     flat = bridge.flatten(params)
@@ -160,14 +213,20 @@ def expert_layout(params: Any, optimizer: Optimizer,
              sharding.shard_tree(meta, mesh.shape, rules).items()}
     specs.update({"opt/" + k: v for k, v in sharding.shard_tree(
         optimizer.init(meta), mesh.shape, rules).items()})
-    return {path: where for path, spec in specs.items() if splits(spec)}
+    out = {}
+    for path, spec in specs.items():
+        blocks = sharding.tile_of(spec, mesh.shape, coords)
+        if blocks:
+            axes = sharding.split_axes(spec)
+            out[path] = sharding.LeafTile(blocks, tuple(sorted(
+                {a for d in blocks for a in axes[d]
+                 if mesh.axis_size(a) > 1})))
+    return out
 
 
-def local_block(t: torch.Tensor, where: Tuple[int, int]) -> torch.Tensor:
-    """Block ``index`` of ``count`` of ``t``'s leading axis (a view)."""
-    index, count = where
-    n = t.shape[0] // count
-    return t[index * n:(index + 1) * n]
+def local_block(t: torch.Tensor, tile: sharding.LeafTile) -> torch.Tensor:
+    """This rank's tile of ``t`` (a view)."""
+    return sharding.cut(t, tile.blocks)
 
 
 def _part(tree: Any, keep: Callable[[str], bool]) -> Any:
@@ -178,14 +237,21 @@ def _part(tree: Any, keep: Callable[[str], bool]) -> Any:
         k: (v if keep(k) else None) for k, v in flat.items()})
 
 
-def _beside_ep(mesh: Mesh):
-    """The group along every axis but ep: the ranks that hold distinct
-    tokens, and the ranks that hold the same expert shard. Without an ep
-    axis it is the mesh's own group, also in a world of one (sync
-    BatchNorm then launches its collectives, as train_dp counts them)."""
-    if mesh.axis_size(EXPERT_AXIS) == 1:
+def token_group(mesh: Mesh):
+    """The group along every axis but the model axes (ep, tp, fsdp): the
+    ranks that hold distinct tokens. Without a model axis above 1 it is
+    the mesh's own group, also in a world of one (sync BatchNorm then
+    launches its collectives, as train_dp counts them)."""
+    if all(mesh.axis_size(a) == 1 for a in MODEL_AXES):
         return mesh.group
-    return mesh.group_over([a for a in mesh.shape if a != EXPERT_AXIS])
+    return mesh.group_over([a for a in mesh.shape if a not in MODEL_AXES])
+
+
+def replica_group(mesh: Mesh, axes):
+    """The ranks that hold the same tile of a leaf split over ``axes``:
+    the group along every other axis (``None`` when this rank is
+    alone)."""
+    return mesh.group_over([a for a in mesh.shape if a not in axes])
 
 
 def _merge(a: Any, b: Any) -> Any:
@@ -203,50 +269,93 @@ def _reduce_grads(grads: Any, mesh: Optional[Mesh], shards: int) -> Any:
         grads, mesh.group if mesh is not None else None, shards=shards)
 
 
+def _by_axes(split: Dict[str, Tuple[str, ...]]) -> Dict[tuple, Set[str]]:
+    out: Dict[tuple, Set[str]] = {}
+    for k, axes in split.items():
+        out.setdefault(tuple(axes), set()).add(k)
+    return out
+
+
 def reduce_step_grads(grads: Any, mesh: Optional[Mesh], shards: int,
-                      expert: Set[str] = frozenset()) -> Any:
+                      split: Optional[Dict[str, Tuple[str, ...]]] = None
+                      ) -> Any:
     """A rank's gradients reduced as the train step reduces them: the
     replicated leaves by :func:`_reduce_grads` (the world mean times
-    ``shards``), the ``expert`` leaves (paths in the gradient tree) by
-    the mean over the ranks that hold the same shard, times ``shards``."""
-    if not expert:
+    ``shards``), each ``split`` leaf (gradient-tree path -> the axes it
+    is split over) by the mean over the ranks that hold the same tile,
+    times ``shards`` (one collective a bucket of each axis set)."""
+    if not split:
         return _reduce_grads(grads, mesh, shards)
-    local = collectives.mean_grads(_part(grads, expert.__contains__),
-                                   _beside_ep(mesh), shards=shards)
-    return _merge(_reduce_grads(_part(grads, lambda k: k not in expert),
-                                mesh, shards), local)
+    out = _reduce_grads(_part(grads, lambda k: k not in split), mesh,
+                        shards)
+    for axes, paths in sorted(_by_axes(split).items()):
+        out = _merge(out, collectives.mean_grads(
+            _part(grads, paths.__contains__), replica_group(mesh, axes),
+            shards=shards))
+    return out
 
 
-def _global_norm(grads: Any, expert: Set[str], group) -> torch.Tensor:
+def _global_norm(grads: Any, groups: Dict[str, Any]) -> torch.Tensor:
     """The whole gradient's global norm when ``grads`` holds this rank's
-    shard of the ``expert`` leaves (paths in the gradient tree): the
-    replicated leaves' squares once, the expert leaves' squares summed
-    over the ep ``group``."""
-    sq = {True: [], False: []}
+    tiles of the split leaves (``groups``: gradient-tree path -> the
+    group over the leaf's axes): the replicated leaves' squares once,
+    each split leaf's squares summed over its group (one sum a group)."""
+    rep: list = []
+    parts: Dict[int, list] = {}
     for k, g in bridge.flatten(grads).items():
-        if g is not None:
-            sq[k in expert].append(torch.sum(torch.square(g.float())))
-    local = torch.stack(sq[True]).sum()
-    total = torch.stack(sq[False]).sum() if sq[False] else 0.0
-    return torch.sqrt(total + collectives.sum_(local, group))
+        if g is None:
+            continue
+        sq = torch.sum(torch.square(g.float()))
+        if k in groups:
+            parts.setdefault(id(groups[k]), [groups[k], []])[1].append(sq)
+        else:
+            rep.append(sq)
+    total = torch.stack(rep).sum() if rep else 0.0
+    for group, sqs in parts.values():
+        total = total + collectives.sum_(torch.stack(sqs).sum(), group)
+    return torch.sqrt(total)
+
+
+def model_tiles(mesh: Mesh, tiles: Dict[str, sharding.LeafTile]
+                ) -> Dict[str, collectives.Tile]:
+    """The layers' view of the parameter leaves split over tp or fsdp
+    (ep leaves reach the MoE layers through the expert group):
+    ``{param path: collectives.Tile}``, each with the group over its axes
+    and its block of the one dimension its rule splits."""
+    out = {}
+    for path, t in tiles.items():
+        if not path.startswith("params/") or EXPERT_AXIS in t.axes:
+            continue
+        if len(t.blocks) != 1:
+            raise NotImplementedError(
+                "leaf %r is split on %d dimensions; the layers compute on "
+                "tiles of one (ROADMAP A5)" % (path, len(t.blocks)))
+        (index, count), = t.blocks.values()
+        out[path[len("params/"):]] = collectives.Tile(
+            mesh.group_over(t.axes), index, count)
+    return out
 
 
 def shard_contexts(mesh: Optional[Mesh], batch_axis: str = "dp",
-                   seq_axis: Optional[str] = None):
+                   seq_axis: Optional[str] = None,
+                   tiles: Optional[Dict[str, collectives.Tile]] = None):
     """The contexts the loss runs in on ``mesh``: the token group (every
-    axis but ep) and this rank's batch block (:func:`.collectives.
-    sync_batch`), the sequence group (:func:`.collectives.
-    sequence_shards`) and the expert group (:func:`.collectives.
-    expert_shards`). No mesh: none."""
+    axis but the model axes) and this rank's batch block
+    (:func:`.collectives.sync_batch`), the sequence group
+    (:func:`.collectives.sequence_shards`), the expert group
+    (:func:`.collectives.expert_shards`) and the leaves split over tp or
+    fsdp (``tiles``, :func:`model_tiles`: :func:`.collectives.
+    model_tiles`). No mesh: none."""
     stack = contextlib.ExitStack()
     if mesh is None:
         return stack
     stack.enter_context(collectives.sync_batch(
-        _beside_ep(mesh), mesh.axis_rank(batch_axis)))
+        token_group(mesh), mesh.axis_rank(batch_axis)))
     stack.enter_context(collectives.sequence_shards(
         mesh.axis_group(seq_axis) if seq_axis is not None else None))
     stack.enter_context(collectives.expert_shards(
         mesh.axis_group(EXPERT_AXIS)))
+    stack.enter_context(collectives.model_tiles(tiles))
     return stack
 
 
@@ -258,7 +367,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
                      grad_clip: Optional[float] = None,
                      accum_steps: int = 1, steps_per_call: int = 1,
                      init_state: bool = True,
-                     host_local_batches: bool = False):
+                     host_local_batches: bool = False,
+                     tiles: Optional[Dict[str, sharding.LeafTile]] = None):
     """Returns ``(step_fn, state)``.
 
     * ``loss_fn(params, batch) -> (loss, aux)``; if ``merge_stats`` is
@@ -272,37 +382,40 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
       extra leading ``[K]`` axis are sliced one step at a time; leaves of
       the sample's shape are reused every step. Metrics come back stacked
       ``[K]``.
-    * ``mesh``: a dp or dp x sp :class:`.mesh.Mesh`.
+    * ``mesh``: a :class:`.mesh.Mesh` over dp, sp, ep, tp and fsdp.
       ``host_local_batches=False``: ``step_fn`` takes the GLOBAL batch,
       the same on every rank, and each rank trains on its contiguous
       block of the batch axis (:func:`batch_axis_of`), cut by its dp
       index; ``True``: ``step_fn`` takes this rank's block as it is (its
-      dp block, the token axis whole under ``seq_axis``). ``rules``
-      naming only axes the mesh lacks are accepted (replicated), rules
-      over ``ep`` shard the expert leaves, other rules raise.
+      dp block, the token axis whole under ``seq_axis``).
     * ``seq_axis``: the mesh axis the sequence is split over (``"sp"``):
       the loss runs inside :func:`.collectives.sequence_shards` of that
       axis's group and returns this rank's part of the replica's loss
       (``models.gpt.loss_fn`` does); the gradients, loss and metrics are
       summed over it.
-    * ``rules``: ``(regex, spec)`` pairs (:mod:`.sharding`); on a mesh
-      with an ``ep`` axis the leaves they split over ep hold this rank's
-      block (:func:`expert_layout`), from ``params`` as every rank has it
-      whole. ``params`` passed with ``init_state=False`` are the live
-      state's (already local).
+    * ``rules``: ``(regex, spec)`` pairs (:mod:`.sharding`); rules naming
+      only axes the mesh lacks are accepted (replicated). On a mesh with
+      a model axis the leaves they split hold this rank's tile
+      (:func:`layout`, ``step_fn.layout``), cut from ``params`` as every
+      rank has them whole. ``params`` passed with ``init_state=False``
+      are the live state's (already tiles): pass the build's layout as
+      ``tiles``; under tp or fsdp it is required (:func:`layout`'s
+      ``local`` reads it from their shapes under ep alone).
     """
     group, shards = None, 1
-    expert: Dict[str, Tuple[int, int]] = {}
+    tiles_of: Dict[str, sharding.LeafTile] = {}
     if mesh is not None:
-        _check_mesh(mesh, rules, batch_axis, seq_axis)
+        _check_mesh(mesh, rules, batch_axis, seq_axis, params)
         group = mesh.group
         if seq_axis is not None:
             shards = mesh.axis_size(seq_axis)
-        expert = expert_layout(params, optimizer, mesh, rules,
-                               local=not init_state)
-    # gradient-tree paths of the expert leaves
-    expert_grads = {k[len("params/"):] for k in expert
-                    if k.startswith("params/")}
+        tiles_of = tiles if tiles is not None else layout(
+            params, optimizer, mesh, rules, local=not init_state)
+    # gradient-tree paths of the split leaves: their axes, their groups
+    split = {k[len("params/"):]: t.axes for k, t in tiles_of.items()
+             if k.startswith("params/")}
+    norm_groups = {k: mesh.group_over(axes) for k, axes in split.items()}
+    layer_tiles = model_tiles(mesh, tiles_of) if tiles_of else None
     # the per-step batch's axis that the mesh splits (the [K] axis is
     # sliced off before step() sees the batch)
     split_axis = batch_axis_of(accum_steps)
@@ -340,13 +453,13 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
             batch = process_shard(batch, mesh.axis_rank(batch_axis),
                                   mesh.axis_size(batch_axis),
                                   axis=split_axis)
-        with shard_contexts(mesh, batch_axis, seq_axis):
+        with shard_contexts(mesh, batch_axis, seq_axis, layer_tiles):
             (loss, aux), grads = grads_of(state["params"], batch)
-        grads = reduce_step_grads(grads, mesh, shards, expert_grads)
+        grads = reduce_step_grads(grads, mesh, shards, split)
         gnorm = None
         if grad_clip:
-            norm = _global_norm(grads, expert_grads, mesh.axis_group(
-                EXPERT_AXIS)) if expert_grads else global_norm(grads)
+            norm = _global_norm(grads, norm_groups) if split \
+                else global_norm(grads)
             grads, gnorm = clip_by_global_norm(grads, grad_clip, norm)
         optimizer.update(grads, state["opt"], state["params"])
         if merge_stats is not None and isinstance(aux, dict) \
@@ -379,19 +492,22 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
         return state, stacked
 
     step_fn = multi_step if steps_per_call > 1 else step
-    step_fn.expert_layout = expert
+    step_fn.layout = tiles_of
     if not init_state:
         return step_fn, None
     flat = bridge.flatten(params)
     own = bridge.unflatten(bridge.structure(params), {
-        k: (local_block(p, expert["params/" + k]) if "params/" + k in expert
-            else p).detach().clone() for k, p in flat.items()})
+        k: (local_block(p, tiles_of["params/" + k])
+            if "params/" + k in tiles_of else p).detach().clone()
+        for k, p in flat.items()})
     state = {"params": own, "opt": optimizer.init(own)}
-    if not expert:
-        return step_fn, collectives.broadcast_(state, group)
-    replicas = _beside_ep(mesh)
-    collectives.broadcast_(_part(state, lambda k: k not in expert), group)
-    collectives.broadcast_(
-        _part(state, expert.__contains__), replicas,
-        src=dist.get_global_rank(replicas, 0) if replicas is not None else 0)
+    collectives.broadcast_(_part(state, lambda k: k not in tiles_of), group)
+    # each tile from the first rank that holds it
+    for axes, paths in sorted(_by_axes(
+            {k: t.axes for k, t in tiles_of.items()}).items()):
+        replicas = replica_group(mesh, axes)
+        if replicas is not None:
+            collectives.broadcast_(_part(state, paths.__contains__),
+                                   replicas,
+                                   src=dist.get_global_rank(replicas, 0))
     return step_fn, state

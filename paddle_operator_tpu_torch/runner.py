@@ -4,13 +4,14 @@ over the processes of a ``torch.distributed`` world (one card each).
 
 It joins the world the operator's env describes
 (:func:`.launch.initialize_distributed`), builds a mesh when
-``mesh_axes`` is set (dp, dp x sp with ``seq_axis``, dp x ep with the
-job's ``rules``) or the world has more than one process (all on dp)
-(:mod:`.parallel.mesh`), hands it to a ``loss_fn`` that declares a
-``mesh`` keyword (the hook ring and Ulysses attention plug into), builds
-the train step with the job's sharding ``rules`` (:mod:`.parallel.train`:
-under an ep axis each rank holds its block of the expert leaves, and
-saves and restores it as its tile of the whole leaf),
+``mesh_axes`` is set (dp, dp x sp with ``seq_axis``, dp x ep, dp x tp or
+dp x fsdp with the job's ``rules``) or the world has more than one
+process (all on dp) (:mod:`.parallel.mesh`), hands it to a ``loss_fn``
+that declares a ``mesh`` keyword (the hook ring and Ulysses attention
+plug into), builds the train step with the job's sharding ``rules``
+(:mod:`.parallel.train`: under ep, tp or fsdp each rank holds its tile
+of every leaf the rules split, saves it once a tile as its block of the
+whole leaf and restores its own blocks shard-wise),
 resumes from the newest valid checkpoint (:func:`.utils.checkpoint.
 restore_latest`, agreed between the ranks), feeds prestaged batches or
 ``[K, ...]`` windows from a background producer (:class:`.data.
@@ -190,7 +191,8 @@ class TrainJob:
     seed: int = 0
     # where to train: None means CUDA (and raises without a card)
     device: DeviceLike = None
-    # {axis: size} of the mesh, over dp and sp (e.g. {"dp": -1, "sp": 2}),
+    # {axis: size} of the mesh, over dp, sp, ep, tp and fsdp (e.g.
+    # {"dp": -1, "sp": 2}, {"dp": 2, "tp": 2}),
     # or a callable world size -> {axis: size}, so that an elastic resize
     # rebuilds the next cycle's mesh at the new world; None: dp over every
     # process of the world, or no mesh in a world of one
@@ -200,8 +202,8 @@ class TrainJob:
     # this rank's block of each sequence (parallel.train)
     seq_axis: Optional[str] = None
     # sharding rules, (regex, spec) pairs (parallel.sharding): rules over
-    # ep split the expert leaves on a mesh with an ep axis; axes the mesh
-    # lacks are dropped
+    # ep, tp or fsdp split their leaves on a mesh with that axis; axes the
+    # mesh lacks are dropped
     rules: Optional[list] = None
     # input contract under dp: False = make_batch returns the GLOBAL
     # batch, the same on every rank, and each rank keeps its dp block;
@@ -403,7 +405,7 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
         if multi:
             save_checkpoint_sharded(job.checkpoint_dir, step, state,
                                     meta={"epoch": epoch}, group=mesh.control,
-                                    tiles=tiles)
+                                    tiles=layout, coords=mesh.coords())
         elif cfg.worker_id == 0:
             writer.save(job.checkpoint_dir, step, state,
                         meta={"epoch": epoch})
@@ -434,13 +436,9 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
     step_fn, state = build_train_step(loss_fn, job.optimizer, params,
                                       sample, steps_per_call=K, **build)
     del params
-    # this rank's tiles of the leaves split over ep: it writes them (the
-    # replica with every other coordinate 0) and restores them
-    layout = step_fn.expert_layout
-    tiles = None
-    if layout:
-        tiles = {"layout": layout, "writer": not any(
-            c for a, c in mesh.coords().items() if a != "ep")}
+    # this rank's tiles of the leaves the rules split: the first replica
+    # of each writes it, and each rank restores its own
+    layout = step_fn.layout
     single_fn = None   # for a tail shorter than K, built on first use
     stages["build_s"] = time.perf_counter() - t
 
@@ -450,11 +448,12 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
         try:
             restored, manifest = restore_latest(
                 job.checkpoint_dir,
-                group=mesh.control if mesh is not None else None)
+                group=mesh.control if mesh is not None else None,
+                tiles=layout if multi else None)
         except FileNotFoundError:
             manifest = None   # fresh run (or nothing valid survived)
         if manifest is not None:
-            load_into(state, restored, layout)
+            load_into(state, restored)
             start_step = int(manifest["step"])
             result.setdefault("resume_steps", []).append(start_step)
             log.info("restored checkpoint step=%d (epoch %s)", start_step,
@@ -517,7 +516,7 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
                 if single_fn is None:
                     single_fn, _ = build_train_step(
                         loss_fn, job.optimizer, state["params"], sample,
-                        init_state=False, **build)
+                        init_state=False, tiles=layout, **build)
                 for _ in range(k_here):
                     state, metrics = dispatch(single_fn, state)
             step += k_here

@@ -17,15 +17,20 @@ Sharded format (:func:`save_checkpoint_sharded`, the multi-process one):
 ``step_N/<path>.sNN.npy`` per shard, ``shards.json`` indexing each
 shard's slices of the global array with its CRC32, and the manifest
 (``"format": "sharded"``). A leaf replicated over the mesh is one shard,
-written by rank 0 (replica 0); a leaf split over ``ep`` (the expert
-weights and their optimizer state) is one tile an ep index, each written
-by the first replica of its shard with its offset in the whole leaf, as
-the reference's per-host tiles are. Every rank writes its part of the
-index, and rank 0 merges them and publishes the step, between the
-reference's four barriers. Readers assemble any tiling (the port's or
-the JAX package's) into whole leaves (:func:`restore_checkpoint`), and
-:func:`load_into` cuts a rank's block from each for the mesh it restores
-into.
+written by rank 0 (replica 0); a leaf the rules split (over ep, tp or
+fsdp, on any dimension: the train step's ``layout``) is one tile a
+rank's block, each written once, by the first replica of that tile, with
+its offsets on every dimension, as the reference's per-host tiles are.
+Every rank writes its part of the index, and rank 0 merges them and
+publishes the step, between the reference's four barriers.
+
+Readers: :func:`restore_checkpoint` assembles any tiling (the port's or
+the JAX package's) into whole leaves, for one process;
+:func:`restore_tiles`, the counterpart of the reference's shard-wise
+``restore_checkpoint_sharded(ckpt_dir, target_state)``, gives a rank its
+own blocks for the mesh it restores into, reading and CRC-checking only
+the tiles that overlap them; :func:`load_into` copies either into a live
+state (cutting whole leaves to a layout's blocks).
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ import torch
 import torch.distributed as dist
 
 from .. import bridge
-from ..parallel import collectives
+from ..parallel import collectives, sharding
 
 log = logging.getLogger("tpujob.checkpoint")
 
@@ -369,25 +374,39 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
     return bridge.unflatten(manifest["structure"], flat), manifest
 
 
+def tile_slices(shape: Tuple[int, ...], blocks: Dict[int, Tuple[int, int]]
+                ) -> List[List[int]]:
+    """``[[start, stop], ...]`` on every dimension of block ``blocks`` of
+    a leaf whose whole shape is ``shape``."""
+    out = []
+    for dim, size in enumerate(shape):
+        i, n = blocks.get(dim, (0, 1))
+        out.append([i * size // n, (i + 1) * size // n])
+    return out
+
+
 def save_checkpoint_sharded(ckpt_dir: str, step: int, state: Any,
                             meta: Optional[dict] = None, keep: int = 3,
                             group: collectives.Group = None,
-                            tiles: Optional[Dict[str, Any]] = None) -> str:
-    """Write ``state``, replicated on every rank of ``group`` (``None``:
-    one process), in the sharded format: rank 0 writes each leaf as one
-    full-extent shard ``<path>.s0.npy``, every rank writes its index part,
-    rank 0 merges the parts, writes ``shards.json`` and the manifest in
-    the staging directory and renames it into place. Every rank calls
+                            tiles: Optional[Dict[str, Any]] = None,
+                            coords: Optional[Dict[str, int]] = None) -> str:
+    """Write ``state`` over the ranks of ``group`` (``None``: one
+    process) in the sharded format: rank 0 writes each replicated leaf as
+    one full-extent shard ``<path>.s0.npy``, every rank writes its index
+    part, rank 0 merges the parts, writes ``shards.json`` and the manifest
+    in the staging directory and renames it into place. Every rank calls
     this at the same step; barriers as the reference's (staging clean,
     shards written, index parts written, step published).
 
-    ``tiles``: ``{"layout": {path: (index, count)}, "writer": bool}`` for
-    a state whose ``layout`` leaves hold block ``index`` of ``count`` of
-    their leading axis (``parallel.train.expert_layout``): each such
-    leaf's block is written as ``<path>.s<index>.npy`` with its offset,
-    by the ranks whose ``writer`` is set (one for each index)."""
-    layout = (tiles or {}).get("layout") or {}
-    writes_tile = bool((tiles or {}).get("writer"))
+    ``tiles``: ``{path: LeafTile}`` (``parallel.train.layout``) for a
+    state whose ``path`` leaves hold this rank's block of a leaf split
+    over the mesh axes ``LeafTile.axes``; each block is written as
+    ``<path>.s<k>.npy`` (``k`` the block's row-major number) with its
+    slices of the whole leaf, by the rank at ``coords`` (its mesh
+    coordinates) whose coordinate is 0 along every other axis: the first
+    replica of that tile."""
+    tiles = tiles or {}
+    coords = coords or {}
     rank = dist.get_rank(group) if group is not None else 0
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
@@ -405,16 +424,21 @@ def save_checkpoint_sharded(ckpt_dir: str, step: int, state: Any,
         dtype = str(torch.empty(0, dtype=leaf.dtype).numpy().dtype
                     if isinstance(leaf, torch.Tensor) else leaf.dtype)
         entries = []
-        tile, count = layout.get(path, (0, 1))
-        writes = writes_tile if path in layout else rank == 0
-        slices = [[tile * shape[0], (tile + 1) * shape[0]]] + [
-            [0, dim] for dim in shape[1:]] if shape else []
-        shape = (shape[0] * count,) + shape[1:] if shape else shape
+        blocks, writes, number = {}, rank == 0, 0
+        if path in tiles:
+            blocks = tiles[path].blocks
+            writes = all(c == 0 for a, c in coords.items()
+                         if a not in tiles[path].axes)
+            for dim in sorted(blocks):
+                number = number * blocks[dim][1] + blocks[dim][0]
+        shape = tuple(size * blocks.get(dim, (0, 1))[1]
+                      for dim, size in enumerate(shape))
         if writes:
             host = _owned_host(leaf)
-            fname = "%s.s%d.npy" % (path.replace("/", "__"), tile)
+            fname = "%s.s%d.npy" % (path.replace("/", "__"), number)
             np.save(os.path.join(staging, fname), host)
-            entries.append({"file": fname, "slices": slices,
+            entries.append({"file": fname,
+                            "slices": tile_slices(shape, blocks),
                             "crc32": _leaf_crc(host)})
         index[path] = {"shape": list(shape), "dtype": dtype,
                        "shards": entries}
@@ -532,8 +556,78 @@ def restore_checkpoint_sharded(ckpt_dir: str, step: Optional[int] = None,
     return bridge.unflatten(manifest["structure"], flat), manifest
 
 
+def _read_block(path: str, entry: Dict[str, Any],
+                want: List[List[int]], opened: Dict[str, np.ndarray]
+                ) -> np.ndarray:
+    """The block ``want`` (``[[start, stop], ...]``) of a leaf, from the
+    shards of its index ``entry`` that overlap it, each read and
+    CRC-checked once (``opened`` caches them by file)."""
+    shape = tuple(entry["shape"])
+    block = np.zeros([b - a for a, b in want], np.dtype(entry["dtype"]))
+    for shard in entry["shards"]:
+        have = shard["slices"] if shard["slices"] is not None \
+            else [[0, d] for d in shape]
+        inter = [(max(a1, a2), min(b1, b2))
+                 for (a1, b1), (a2, b2) in zip(want, have)]
+        if any(a >= b for a, b in inter):
+            continue
+        if shard["file"] not in opened:
+            opened[shard["file"]] = _load_shard(
+                os.path.join(path, shard["file"]), entry["dtype"],
+                shard.get("crc32"))
+        data = opened[shard["file"]]
+        src = tuple(slice(a - h, b - h) for (a, b), (h, _) in zip(inter, have))
+        dst = tuple(slice(a - w, b - w) for (a, b), (w, _) in zip(inter, want))
+        block[dst] = data[src]
+    return block
+
+
+def restore_tiles(ckpt_dir: str, tiles: Dict[str, Any],
+                  step: Optional[int] = None,
+                  _manifest: Optional[dict] = None) -> Tuple[Any, dict]:
+    """This rank's part of a step as ``(state, manifest)``: each leaf in
+    ``tiles`` (``{path: LeafTile}``, the layout of the mesh it restores
+    into) as its block, every other leaf whole, as numpy arrays. Of a
+    sharded step only the shards that overlap those blocks are read and
+    CRC-checked, whatever mesh and tiling wrote them (the shard-wise
+    restore of the reference's ``restore_checkpoint_sharded``); a v2 step
+    (one process's) is read whole and cut."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError("no checkpoints under %s" % ckpt_dir)
+    manifest = (_manifest if _manifest is not None
+                else _load_manifest(ckpt_dir, step))
+    if manifest.get("format") != "sharded":
+        whole, manifest = restore_checkpoint(ckpt_dir, step=step,
+                                             _manifest=manifest)
+        flat = {k: (np.ascontiguousarray(sharding.cut(
+                    np.asarray(v), tiles[k].blocks)) if k in tiles else v)
+                for k, v in bridge.flatten(whole).items()}
+        return bridge.unflatten(manifest["structure"], flat), manifest
+    path = _step_dir(ckpt_dir, step)
+    try:
+        with open(os.path.join(path, "shards.json")) as f:
+            index = json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError, UnicodeDecodeError,
+            OSError) as e:
+        raise CorruptCheckpointError(
+            "sharded checkpoint step %d has no usable shards.json: %s"
+            % (step, e))
+    flat = {}
+    for key, entry in index.items():
+        _check_coverage(entry)
+        want = tile_slices(tuple(entry["shape"]),
+                           tiles[key].blocks if key in tiles else {})
+        flat[key] = _read_block(path, entry, want, {})
+    log.info("sharded checkpoint restored shard-wise: %s", path)
+    return bridge.unflatten(manifest["structure"], flat), manifest
+
+
 def restore_latest(ckpt_dir: str,
-                   group: collectives.Group = None) -> Tuple[Any, dict]:
+                   group: collectives.Group = None,
+                   tiles: Optional[Dict[str, Any]] = None
+                   ) -> Tuple[Any, dict]:
     """Restore the newest step that loads, walking newest -> oldest and
     quarantining every torn or checksum-corrupt step on the way. Raises
     FileNotFoundError when no valid step survives.
@@ -542,7 +636,9 @@ def restore_latest(ckpt_dir: str,
     tried is the oldest of the ranks' newest, it counts only if every
     rank loaded it, and a quarantine is seen by every rank before the
     next round lists the directory, so the ranks never resume from
-    different steps."""
+    different steps. ``tiles`` (a layout, possibly empty): each rank
+    reads its own blocks (:func:`restore_tiles`); ``None``: whole
+    leaves."""
     multi = group is not None and dist.get_world_size(group) > 1
     while True:
         steps = _listed_steps(ckpt_dir)
@@ -556,8 +652,10 @@ def restore_latest(ckpt_dir: str,
         failure: Optional[CorruptCheckpointError] = None
         try:
             manifest = _load_manifest(ckpt_dir, step)
-            result = restore_checkpoint(ckpt_dir, step=step,
-                                        _manifest=manifest)
+            result = restore_checkpoint(
+                ckpt_dir, step=step, _manifest=manifest) if tiles is None \
+                else restore_tiles(ckpt_dir, tiles, step=step,
+                                   _manifest=manifest)
         except CorruptCheckpointError as e:
             failure = e
         ok = failure is None
@@ -581,12 +679,11 @@ def restore_latest(ckpt_dir: str,
 
 
 def load_into(state: Any, restored: Any,
-              layout: Optional[Dict[str, Tuple[int, int]]] = None) -> Any:
+              layout: Optional[Dict[str, Any]] = None) -> Any:
     """Copy a restored numpy tree into a live torch state tree in place,
     leaf by leaf; names, shapes and dtypes must match, after a leaf in
-    ``layout`` (``{path: (index, count)}``, ``parallel.train.
-    expert_layout``) is cut to block ``index`` of ``count`` of its
-    leading axis. Returns ``state``."""
+    ``layout`` (``{path: LeafTile}``, ``parallel.train.layout``) is cut
+    from the whole leaf to this rank's block. Returns ``state``."""
     layout = layout or {}
     live = bridge.flatten(state)
     got = bridge.flatten(restored)
@@ -598,9 +695,7 @@ def load_into(state: Any, restored: Any,
         for name, t in live.items():
             src = torch.from_numpy(np.asarray(got[name]))
             if name in layout:
-                index, count = layout[name]
-                n = src.shape[0] // count
-                src = src[index * n:(index + 1) * n]
+                src = sharding.cut(src, layout[name].blocks)
             if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype:
                 raise ValueError(
                     "checkpoint leaf %r is %s %s, the state's is %s %s"

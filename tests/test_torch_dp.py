@@ -435,12 +435,19 @@ def test_make_mesh_matches_reference(axes, world):
 
 
 def test_make_mesh_refuses_other_axes(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_mesh({"dp": 2, "tp": 2}, world=4)
-    monkeypatch.setenv("TPUJOB_MESH", "dp=2")
-    assert mesh_from_env(world=2).shape == {"dp": 2}
+    """A pipeline axis and a multislice DCN mesh still raise (ROADMAP A5);
+    tp and fsdp beside dp build, laid out as the reference's meshes."""
+    with pytest.raises(NotImplementedError, match="A5"):
+        make_mesh({"dp": 2, "pp": 2}, world=4)
+    for axis in ("tp", "fsdp"):
+        got = make_mesh({"dp": 2, axis: 2}, world=4)
+        assert got.shape == dict(jmesh.make_mesh(
+            {"dp": 2, axis: 2}, jax.devices()[:4]).shape)
+        assert got.axis_size(axis) == 2 and got.group is None
+    monkeypatch.setenv("TPUJOB_MESH", "dp=2,tp=2")
+    assert mesh_from_env(world=4).shape == {"dp": 2, "tp": 2}
     monkeypatch.setenv("TPUJOB_DCN_MESH", "dp=2")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A5"):
         mesh_from_env(world=4)
 
 

@@ -474,7 +474,7 @@ def test_rules_on_a_mesh_without_ep_keep_every_leaf_whole():
         lambda p, b: tgpt.loss_fn(p, b, dtype=torch.float32),
         topt.adamw(1e-3), params, batch, mesh=make_mesh({"dp": 1}),
         rules=tsharding.gpt_rules() + tsharding.moe_rules())
-    assert step.expert_layout == {}
+    assert step.layout == {}
     assert state["params"]["layers"][0]["moe"]["wi"].shape[0] == 4
     state, m = step(state, batch)
     assert np.isfinite(float(m["loss"]))

@@ -28,6 +28,7 @@ from paddle_operator_tpu_torch import bridge
 from paddle_operator_tpu_torch.models import resnet as tres
 from paddle_operator_tpu_torch.ops import optim as topt
 from paddle_operator_tpu_torch.parallel import build_train_step
+from paddle_operator_tpu_torch.parallel import sharding as tsharding
 from paddle_operator_tpu_torch.parallel.mesh import make_mesh
 from paddle_operator_tpu_torch.utils.checkpoint import load_into
 
@@ -174,21 +175,35 @@ def test_state_is_a_copy_and_updates_in_place(tree):
 
 
 def test_mesh_is_refused(tree):
-    """What the dp-only port cannot shard still raises: a mesh axis other
-    than dp, a sequence axis, and sharding rules over an axis of the
-    mesh. Rules over axes the mesh lacks mean "replicated", as in the
-    reference (``tests/test_parallel.py::test_rules_survive_missing_axis``)."""
-    with pytest.raises(NotImplementedError):
-        make_mesh({"dp": 1, "tp": 2}, world=2)
+    """What the port cannot shard still raises, naming ROADMAP A5: a
+    pipeline axis, a sequence axis the mesh lacks, tp with sp or ep,
+    rules over an axis no tile code reads (dp) or that no layer computes
+    on (the CTR tables over tp). Rules over axes the mesh lacks mean
+    "replicated", as in the reference
+    (``tests/test_parallel.py::test_rules_survive_missing_axis``), and
+    tp and fsdp meshes build."""
+    with pytest.raises(NotImplementedError, match="A5"):
+        make_mesh({"dp": 1, "pp": 2}, world=2)
+    assert make_mesh({"dp": 1, "tp": 2}, world=2).shape == {"dp": 1,
+                                                            "tp": 2}
+    assert make_mesh({"dp": 1, "fsdp": 2}, world=2).shape == {"dp": 1,
+                                                              "fsdp": 2}
     mesh = make_mesh({"dp": 1})
     params = bridge.params_from_numpy(tree, device="cpu")
     batch = bridge.params_from_numpy(_batches("plain")[0], device="cpu")
     args = (tres.loss_fn, topt.sgd(0.1), params, batch)
     with pytest.raises(NotImplementedError):
         build_train_step(*args, mesh=mesh, seq_axis="sp")
-    with pytest.raises(NotImplementedError):
-        build_train_step(*args, mesh=mesh,
+    with pytest.raises(NotImplementedError, match="A5"):
+        build_train_step(*args, mesh=make_mesh({"dp": 2}, world=2),
                          rules=[(r"head/fc/kernel", (None, "dp"))])
+    for axes in ({"tp": 2, "sp": 2}, {"fsdp": 2, "ep": 2}):
+        with pytest.raises(NotImplementedError, match="A5"):
+            build_train_step(*args, mesh=make_mesh(axes, world=4),
+                             seq_axis="sp" if "sp" in axes else None)
+    with pytest.raises(NotImplementedError, match="A5"):
+        build_train_step(*args, mesh=make_mesh({"tp": 2}, world=2),
+                         rules=tsharding.ctr_rules())
     with pytest.raises(ValueError):
         build_train_step(*args, mesh=mesh, batch_axis="data")
     step, state = build_train_step(
