@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
 and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the twelve ported paths:
+path. Then it drives the fourteen ported paths:
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -77,12 +77,23 @@ path. Then it drives the twelve ported paths:
   "tp": 2}``, BERT-base (2 layers) on ``{"tp": 4}`` and phase train's
   ResNet-50 job on ``{"dp": 2, "fsdp": 2}`` (four workers), each against
   one process, with five planted faults; gates in ``phase_train_tp``.
+* train_pp: GPipe over a ``pp`` axis (``parallel.pipeline``): GPT-2
+  small's 12 blocks as four stages of three on four workers, a batch of
+  8 x 1024 as 4 microbatches, B2 on every tick of every stage, against
+  one process running the blocks in sequence, with three planted
+  faults; gates in ``phase_train_pp``.
+* train_hybrid: tp beside sp and ep, MoE under tp, one world of eight
+  workers: the reference's dry-run program 1 (BERT TINY MoE on dp1 x tp2
+  x sp2 x ep2) and GPT-2 small's width at 2 layers with 8 experts on tp2
+  x sp2 x ep2 (B2 on each rank's 6 heads over the ring, B4 on its local
+  experts), each against one process, with two planted faults; gates in
+  ``phase_train_hybrid``.
 
 Each phase prints one JSON line; the last two lines are the per-kernel
 summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero without that last line. Without CUDA it exits 2. On a machine
-of four or more cards, phases train_sp, train_moe_ep and train_tp run
-over NCCL, one card a worker.
+of four or more cards, phases train_sp, train_moe_ep, train_tp and
+train_pp run over NCCL, one card a worker (train_hybrid on eight).
 """
 
 from __future__ import annotations
@@ -104,7 +115,8 @@ import numpy as np
 import torch
 
 from paddle_operator_tpu_torch import bridge, dp_check, elastic_check, \
-    migrate_check, moe_check, ps, ps_check, testing, tp_check
+    hybrid_check, migrate_check, moe_check, pp_check, ps, ps_check, \
+    testing, tp_check
 from paddle_operator_tpu_torch.artifacts.server import ArtifactServer
 from paddle_operator_tpu_torch.artifacts.state import pack_state_dir, \
     state_fingerprint
@@ -649,7 +661,8 @@ def _flash_measure(rate: float) -> dict:
     lse_entry = {"shape": [2, 4, 512, 64], "causal": True,
                  "errors": errors, "chain": chain}
     sp = _flash_sp(SP_FLASH_CASES + ELASTIC_FLASH_CASES
-                   + MOE_EP_FLASH_CASES + TP_FLASH_CASES)
+                   + MOE_EP_FLASH_CASES + TP_FLASH_CASES + PP_FLASH_CASES
+                   + HYBRID_FLASH_CASES)
 
     shape = (GPT_BATCH, gpt.BASE_CONFIG["heads"], GPT_SEQ,
              gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"])
@@ -1693,17 +1706,18 @@ def _routing_parts(log: list, ref: list, layers: int) -> dict:
 
 @torch.no_grad()
 def _moe_case(tokens: int, factor: float, seed: int = 0,
-              dim: int = 0) -> dict:
+              dim: int = 0, experts: int = 0) -> dict:
     """``tokens`` tokens of GPT-2 small's width (or ``dim``) routed by
-    ``moe._route`` (a router from ``moe_init``, activations N(0, 1) from
-    ``seed``, on the card), with an fp32 gate and expert outputs
-    ``[E, capacity, D]``."""
+    ``moe._route`` over MOE_EXPERTS experts (or ``experts``; a router
+    from ``moe_init``, activations N(0, 1) from ``seed``, on the card),
+    with an fp32 gate and expert outputs ``[E, capacity, D]``."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     d = dim or gpt.BASE_CONFIG["hidden"]
-    params = moe.moe_init(gen, d, 8, MOE_EXPERTS)
+    e = experts or MOE_EXPERTS
+    params = moe.moe_init(gen, d, 8, e)
     x = torch.randn((1, tokens, d), generator=gen, device=DEVICE)
     gate, choice, pos, cap, _ = moe._route(params, x, factor)
-    eo = torch.randn((MOE_EXPERTS, cap, d), generator=gen, device=DEVICE)
+    eo = torch.randn((e, cap, d), generator=gen, device=DEVICE)
     return {"x": x[0], "eo": eo, "gate": gate, "choice": choice, "pos": pos,
             "capacity": cap, "kept": int((pos < cap).sum().item())}
 
@@ -1855,7 +1869,8 @@ def _moe_measure(rate: float) -> dict:
     capacity 1280), both on the 16-byte path; at a rank's tokens and
     experts on the MoE-ep path (MOE_EP_B4_CASES: a dp4 rank's 4096
     tokens over 8 experts, a dp2 x ep2 rank's 8192 tokens over its 4,
-    the capacity of the global 16384); then at a ragged T; at
+    the capacity of the global 16384) and on the hybrid path
+    (HYBRID_B4_CASES); then at a ragged T; at
     capacity factor 0.5 (dropped rows must be exact zeros); at D = 203
     (the scalar path); and with the forward fault planted (the check must
     reject it). Each variant a bf16 train step launches is timed at the
@@ -1880,8 +1895,9 @@ def _moe_measure(rate: float) -> dict:
             ("combine", BF16, BF16, True), ("combine", BF16, F32, False)))
         checks[name].update(tokens=tokens, dim=case["x"].shape[1],
                             dropped=tokens - case["kept"])
-    for name, first, count, expert0, experts in MOE_EP_B4_CASES:
-        case = _moe_rank_case(first, count, expert0, experts)
+    for name, first, count, expert0, experts, *glob in \
+            MOE_EP_B4_CASES + HYBRID_B4_CASES:
+        case = _moe_rank_case(first, count, expert0, experts, *glob)
         checks[name] = dict(_moe_compare(case, MOE_VARIANTS), tokens=count,
                             experts=experts, first_expert=expert0,
                             capacity=case["capacity"], kept=case["kept"])
@@ -3694,12 +3710,15 @@ MOE_EP_FLASH_CASES = (
 
 @torch.no_grad()
 def _moe_rank_case(first: int, count: int, expert0: int,
-                   experts: int) -> dict:
-    """B4's operands on one rank of the MoE-ep path: the GPT path's case
-    (:func:`_moe_case`, routed over the global batch) cut to the rank's
-    tokens, its expert ids shifted to its first expert, and expert
-    outputs for its experts only."""
-    case = _moe_case(GPT_BATCH * GPT_SEQ, 1.25)
+                   experts: int, tokens: int = 0, dim: int = 0,
+                   n_experts: int = 0) -> dict:
+    """B4's operands on one rank of an expert-parallel path: the global
+    batch's case (:func:`_moe_case`: ``tokens``, default the GPT path's,
+    of width ``dim`` over ``n_experts``) cut to the rank's tokens, its
+    expert ids shifted to its first expert, and expert outputs for its
+    experts only."""
+    case = _moe_case(tokens or GPT_BATCH * GPT_SEQ, 1.25, dim=dim,
+                     experts=n_experts)
     rows = slice(first, first + count)
     return {"x": case["x"][rows].contiguous(),
             "eo": case["eo"][expert0:expert0 + experts].contiguous(),
@@ -4484,6 +4503,455 @@ def phase_train_tp(smi: str, gpt_losses: list = None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_pp: GPipe over a pp axis
+# ---------------------------------------------------------------------------
+
+#: |loss(pipelined) - loss(one process)| / loss allowed at each step:
+#: train_dp's GPT class, DP_GPT_RTOL. On an H100 80GB HBM3 at 700 W
+#: (``python -m paddle_operator_tpu_torch.pp_check``, seeds 0-2) one
+#: process one ulp up parted from itself by 7.9e-7 - 1.4e-6 in 3 steps
+#: and the pipeline by 6.2e-7 - 1.3e-6; the planted faults' lowest
+#: step-0 reading is 3.3e-4 (stages swapped; a bank a tick early 3.8e-4)
+PP_LOSS_RTOL = DP_GPT_RTOL
+#: the largest ||g - g_one|| / ||g_one|| of step 0's gradients over the
+#: leaves (each rank's stage against its block): train_gpt's class,
+#: GPT_GRAD_RTOL, between the same readings' one ulp up (0.0173 -
+#: 0.0181 at the farthest leaf; the pipeline 0.0025 - 0.0027) and the
+#: faults' lowest, 1.49
+PP_GRAD_RTOL = GPT_GRAD_RTOL
+PP_FAULT_STEPS = 1
+#: B2 at a stage's shape: a microbatch of 2 sequences on the 12 heads,
+#: held against its plain versions in the kernels phase
+PP_FLASH_CASES = (
+    ("pp_microbatch", (pp_check.CARD_BATCH // pp_check.CARD_MICRO,
+                       gpt.BASE_CONFIG["heads"], pp_check.CARD_SEQ,
+                       gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"]),
+     "bfloat16", True),)
+#: each planted fault (``pp_check.FAULTS``) and the gate that must reject
+#: it
+PP_FAULTS = {"sum_backward_reduces": "grads", "bank_one_early": "loss",
+             "stages_swapped": "grads"}
+
+
+def pp_bubble(n_stages: int = pp_check.CARD_STAGES,
+              n_micro: int = pp_check.CARD_MICRO) -> float:
+    """GPipe's bubble, the ticks a stage idles over a sweep:
+    (S - 1) / (M + S - 1)."""
+    return (n_stages - 1) / (n_micro + n_stages - 1)
+
+
+def _pp_problems(name: str, lines: list, one: list) -> list:
+    """``(gate, message)`` of every gate a train_pp run fails: every
+    rank's loss (the same on every rank) within PP_LOSS_RTOL of one
+    process's at every step; step 0's gradients within PP_GRAD_RTOL;
+    replicas (the replicated leaves, the embedding, the final LayerNorm
+    and the head, bitwise on every rank after every step; every rank's
+    losses bitwise equal); the flash launches of a rank a step
+    (``pp_check.launches_per_step``); finite losses."""
+    problems = []
+    steps = len(lines[0]["losses"])
+    rel = rel_diffs(lines[0]["losses"], one)
+    if len(rel) != steps or not max(rel) <= PP_LOSS_RTOL:
+        problems.append(("loss", "%s losses part from one process's by %r"
+                         % (name, rel)))
+    if len({json.dumps(r["fingerprints"]) for r in lines}) != 1 or len(
+            {r["rest_digest"] for r in lines}) != 1 or len(
+            {tuple(r["losses"]) for r in lines}) != 1:
+        problems.append(("replicas", "%s replicated leaves or losses "
+                         "differ between ranks" % name))
+    want = {k: v * steps for k, v in pp_check.launches_per_step().items()}
+    for r in lines:
+        if not r["grads"]["max_rel_diff"] <= PP_GRAD_RTOL:
+            problems.append(("grads", "%s rank %d's step-0 gradients part "
+                             "from one process's by %g at %s"
+                             % (name, r["rank"], r["grads"]["max_rel_diff"],
+                                r["grads"]["leaf"])))
+        if any(r["launches"][k] != v for k, v in want.items()):
+            problems.append(("launches", "%s rank %d launched %r, expected "
+                             "%r" % (name, r["rank"], r["launches"], want)))
+        if not all(np.isfinite(x) for x in r["losses"]):
+            problems.append(("loss", "%s: a loss is not finite" % name))
+    return problems
+
+
+def phase_train_pp(smi: str) -> dict:
+    """GPipe over a ``pp`` axis through the port's path
+    (``parallel.pipeline.pipeline_apply``): GPT-2 small at full width and
+    depth (hidden 768, 12 heads, T 1024, bf16 compute on fp32 params,
+    dense) with its 12 blocks split into four stages of three on ``{"pp":
+    4}``, four workers; the token embedding, the final LayerNorm and the
+    chunked LM-head cross-entropy on every rank; a batch of 8 x 1024 as 4
+    microbatches of 2; the loss and the gradients of the stacked blocks
+    (each rank its stage's) and of the replicated leaves, and an adamw
+    step, ``pp_check.CARD_STEPS`` times (``pp_check.card_run``), under
+    deterministic algorithms with TF32 off.
+
+    Against one process running the 12 blocks in sequence on the same
+    parameters and whole batches (``pp_check.one_process``, the
+    reference's ``test_pipeline_matches_sequential`` at full width), and
+    each planted fault of ``pp_check.FAULTS`` for PP_FAULT_STEPS steps,
+    which its gate (PP_FAULTS) must reject. B2 runs on every tick of every
+    stage, junk ticks included, and in the backward of every tick: a rank
+    launches (M + S - 1) x 3 flash forwards, dq and dkv a step (21 each;
+    no remat). The workers start through ``python -m
+    paddle_operator_tpu_torch.launch``; NCCL a card each where the
+    machine has a card a worker, else gloo on this card (a correctness
+    run, not a rate). Gates: :func:`_pp_problems`. Printed: step ms a
+    rank, the pp hops a step with their bytes and host seconds, the
+    bubble share, peak GB a rank and the phase's seconds."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    world = pp_check.CARD_STAGES
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    try:
+        ref = pp_check.one_process(tmp)
+        torch.cuda.empty_cache()
+        t_world = time.perf_counter()
+        mesh = {"pp": world}
+        scenarios = [{"kind": "card", "name": "pp4", "mesh": mesh,
+                      "steps": pp_check.CARD_STEPS,
+                      "grads_ref": ref["grads"]}]
+        scenarios += [{"kind": "card", "name": "pp4_" + fault, "mesh": mesh,
+                       "steps": PP_FAULT_STEPS, "fault": fault,
+                       "grads_ref": ref["grads"]} for fault in PP_FAULTS]
+        lines = [ln for r in pp_check.launch(
+            {"out": os.path.join(tmp, "world"), "scenarios": scenarios},
+            world=world, backend=backend, timeout=600) for ln in r]
+        world_s = time.perf_counter() - t_world
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs: dict = {}
+    for line in lines:
+        runs.setdefault(line["scenario"], []).append(line)
+    runs = {k: sorted(v, key=lambda r: r["rank"]) for k, v in runs.items()}
+    gates, summary = {}, {}
+    for name, rs in runs.items():
+        steps = len(rs[0]["losses"])
+        gates[name] = _pp_problems(name, rs, ref["losses"][:steps])
+        summary[name] = {
+            "losses": rs[0]["losses"], "one_process_losses": ref["losses"],
+            "max_rel_loss_diff_vs_one_process": max(rel_diffs(
+                rs[0]["losses"], ref["losses"])),
+            "grads": [r["grads"] for r in rs],
+            "step_ms": [r["step_ms"] for r in rs],
+            "step_ms_median": [statistics.median(r["step_ms"][1:] or
+                                                 r["step_ms"]) for r in rs],
+            "pp_traffic_per_step": [
+                {k: v / steps for k, v in r["pp_traffic"].items()}
+                for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "expected_per_step": pp_check.launches_per_step(),
+            "peak_gb": [r["peak_gb"] for r in rs],
+            "wall_s": [r["wall_s"] for r in rs],
+            "gates_failed": sorted({g for g, _ in gates[name]})}
+    out = {"phase": "train_pp", "card": smi, "backend": backend,
+           "note": "workers share this one card over gloo: a correctness "
+                   "check, not a multi-GPU rate"
+                   if backend == "gloo" else "a card a worker",
+           "stages": world, "microbatches": pp_check.CARD_MICRO,
+           "bubble_share": pp_bubble(), "runs": summary,
+           "tolerance": {"loss_rel": PP_LOSS_RTOL, "grad_rel": PP_GRAD_RTOL},
+           "world_s": world_s, "seconds": time.perf_counter() - t0}
+    emit(out)
+    sound = summary.get("pp4")
+    if sound is not None:
+        t = sound["pp_traffic_per_step"][0]
+        print("train_pp (%s, %s): GPT-2 small, 12 blocks as %d stages of "
+              "3, %d microbatches of %d; bubble %.4f; pp collectives a step "
+              "a rank: %d hops forward, %d back, %d output sums, %d input "
+              "sums, %.1f MB, %.3f s host; step ms a rank %s; peak GB %s; "
+              "off one process by %.3g" % (
+                  smi, backend, world, pp_check.CARD_MICRO,
+                  pp_check.CARD_BATCH // pp_check.CARD_MICRO, pp_bubble(),
+                  t["hop"], t["hop_backward"], t["sum_forward"],
+                  t["sum_backward"], t["bytes"] / 1e6, t["seconds"],
+                  ["%.1f" % x for x in sound["step_ms_median"]],
+                  ["%.2f" % x for x in sound["peak_gb"]],
+                  sound["max_rel_loss_diff_vs_one_process"]), flush=True)
+    print("train_pp (%s): phase %.1f s, world %.1f s"
+          % (smi, out["seconds"], world_s), flush=True)
+    problems = []
+    for name, p in gates.items():
+        fault = runs[name][0]["fault"]
+        if fault:
+            if PP_FAULTS[fault] not in {g for g, _ in p}:
+                problems.append("the %s gate missed the planted fault %s"
+                                % (PP_FAULTS[fault], fault))
+        else:
+            problems += [msg for _, msg in p]
+    missing = ({"pp4"} | {"pp4_" + f for f in PP_FAULTS}) - set(runs)
+    if missing:
+        problems.append("runs missing: %s" % sorted(missing))
+    if problems:
+        fail("train_pp: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train_hybrid: tp beside sp and ep, MoE under tp
+# ---------------------------------------------------------------------------
+
+HYBRID_STEPS = 2
+HYBRID_FAULT_STEPS = 1
+#: per run (on an H100 80GB HBM3 at 700 W, ``python -m
+#: paddle_operator_tpu_torch.hybrid_check``, seeds 0-2, 2 steps; "one
+#: ulp" is one process with every parameter one ulp up against itself,
+#: "the world" the eight workers against one process):
+#: |loss(world) - loss(one process)| / loss allowed at each step: the
+#: MoE-ep class, MOE_EP_LOSS_RTOL (routing flips; the world read up to
+#: 3.8e-3 at (a)'s step 1, 8.0e-5 in (b); one ulp 2.2e-4 and 1.2e-4);
+HYBRID_LOSS_RTOL = {"program1_bert_tiny_moe": MOE_EP_LOSS_RTOL,
+                    "gpt_2layers_moe_tp2_sp2_ep2": MOE_EP_LOSS_RTOL}
+#: the same at step 0 (the world up to 2.1e-4 and 2.9e-5; one ulp 7.8e-5
+#: and 2.9e-5);
+HYBRID_LOSS0_RTOL = {"program1_bert_tiny_moe": 1e-3,
+                     "gpt_2layers_moe_tp2_sp2_ep2": 1e-3}
+#: the step-0 clip norm against one process's gradients' norm: one ulp
+#: read up to 1.8e-3 (a) and 8.2e-4 (b), the world 7.1e-4 and 1.1e-3;
+#: the MoE leaves taken for tp tiles 1.1e-2 in (a);
+HYBRID_NORM_RTOL = {"program1_bert_tiny_moe": 5e-3,
+                    "gpt_2layers_moe_tp2_sp2_ep2": 5e-3}
+#: the largest ||g - g_one|| / ||g_one|| of step 0's gradients over the
+#: leaves (each tile against its slice): the MoE-ep class,
+#: MOE_EP_GRAD_RTOL (one ulp up to 0.017 (a) and 0.18 (b), at (b)'s
+#: near-zero attention key biases; the world 0.033 and 0.18; the
+#: LayerNorms left unsummed over sp 0.78)
+HYBRID_GRAD_RTOL = {"program1_bert_tiny_moe": MOE_EP_GRAD_RTOL,
+                    "gpt_2layers_moe_tp2_sp2_ep2": MOE_EP_GRAD_RTOL}
+#: each planted fault (``tp_check.HYBRID_FAULTS``): the run it is planted
+#: in and the gate that must reject it
+HYBRID_FAULTS = {
+    "ln_grad_unsummed_over_sp": ("program1_bert_tiny_moe", "replicas"),
+    "moe_leaves_as_tp_tiles": ("program1_bert_tiny_moe", "norm")}
+#: B2 at (b)'s shapes, held against its plain versions in the kernels
+#: phase: a ring hop of a tp rank's 6 heads of 12 on a 512-token sp
+#: block of the 4 sequences, hop 0 causal and the other not
+HYBRID_FLASH_CASES = tuple(
+    ("ring_hop", (hybrid_check.GPT_BATCH, gpt.BASE_CONFIG["heads"] // 2,
+                  hybrid_check.GPT_SEQ // 2,
+                  gpt.BASE_CONFIG["hidden"] // gpt.BASE_CONFIG["heads"]),
+     "bfloat16", causal) for causal in (True, False))
+#: B4 at a rank's shapes on the hybrid path (as MOE_EP_B4_CASES, with the
+#: global batch's tokens, width and experts): (b)'s rank, 2048 of the
+#: 4096 tokens over its 4 of 8 experts; (a)'s, 32 of BERT TINY's 64
+#: tokens (width 128) over its 2 of 4
+HYBRID_B4_CASES = (
+    ("hybrid_gpt_rank", 0, hybrid_check.GPT_BATCH * hybrid_check.GPT_SEQ
+     // 2, MOE_EXPERTS // 2, MOE_EXPERTS // 2,
+     hybrid_check.GPT_BATCH * hybrid_check.GPT_SEQ, 0, MOE_EXPERTS),
+    ("program1_rank", 0, 32, 2, 2, 64, bert.TINY_CONFIG["hidden"], 4))
+
+
+def hybrid_launches_per_step(run: str) -> dict:
+    """B2 and B4 launches of a rank a step on the hybrid path, from the
+    code. (a): BERT TINY's ring runs blockwise (a 16-token block is under
+    the kernels' 256), no flash; both layers MoE, no remat. (b): each of
+    the 2 layers' causal ring runs B2 on each of the sp 2 hops, the
+    forward twice (remat), dq and dkv once; both layers MoE under
+    remat. B4: :func:`moe_launches_per_step`."""
+    model, axes = hybrid_check.CARD_RUNS[run]
+    if model == "bert":
+        cfg, remat, flash = hybrid_check.program1_config(axes["ep"]), \
+            False, 0
+    else:
+        cfg = dict(gpt.BASE_CONFIG, layers=2, moe_experts=8, moe_every=1)
+        remat, flash = True, cfg["layers"] * axes["sp"]
+    return {"flash_fwd": 2 * flash, "flash_dq": flash, "flash_dkv": flash,
+            **moe_launches_per_step(cfg, remat)}
+
+
+def _same_on_holders(lines: list, axes: dict) -> bool:
+    """Each group of leaves of :func:`tp_check.axes_digests` bitwise equal
+    on the ranks that hold the same tiles of it (every rank for the
+    replicated leaves); every rank's clip norms equal."""
+    for key in lines[0]["axes_digests"]:
+        split = [a for a in key.split(",") if a]
+        seen: dict = {}
+        for r in lines:
+            holder = tuple(r["coords"][a] for a in split)
+            seen.setdefault(holder, set()).add(r["axes_digests"].get(key))
+        if any(len(v) != 1 for v in seen.values()):
+            return False
+    return len({tuple(r["grad_norms"]) for r in lines}) == 1
+
+
+def hybrid_losses(lines: list) -> list:
+    """A hybrid run's global loss a step: each rank's loss is its
+    sequence block's part of its replica's, so the mean over the ranks
+    times sp (the ranks along tp and ep hold the same tokens)."""
+    sp = hybrid_check.CARD_RUNS[lines[0]["run"]][1].get("sp", 1)
+    return (sp * np.mean([r["losses"] for r in lines], axis=0)).tolist()
+
+
+def _hybrid_problems(name: str, lines: list, one: dict) -> list:
+    """``(gate, message)`` of every gate a train_hybrid run fails: the
+    global loss (:func:`hybrid_losses`) within HYBRID_LOSS_RTOL of one
+    process's at every step (HYBRID_LOSS0_RTOL at step 0); the step-0
+    clip norm within HYBRID_NORM_RTOL of one process's gradients' norm;
+    step 0's gradients within HYBRID_GRAD_RTOL; replicas
+    (:func:`_same_on_holders`); B2 and B4 launches of a rank a step;
+    finite losses."""
+    run = lines[0]["run"]
+    problems = []
+    steps = len(lines[0]["losses"])
+    rel = rel_diffs(hybrid_losses(lines), one["losses"])
+    if len(rel) != steps or not max(rel) <= HYBRID_LOSS_RTOL[run] \
+            or not rel[0] <= HYBRID_LOSS0_RTOL[run]:
+        problems.append(("loss", "%s losses part from one process's by %r"
+                         % (name, rel)))
+    norm = abs(lines[0]["grad_norms"][0] - one["grad_norm"]) / one[
+        "grad_norm"]
+    if not norm <= HYBRID_NORM_RTOL[run]:
+        problems.append(("norm", "%s step-0 clip norm parts from one "
+                         "process's by %g" % (name, norm)))
+    if not _same_on_holders(lines, hybrid_check.CARD_RUNS[run][1]):
+        problems.append(("replicas", "%s replicas differ" % name))
+    want = {k: v * steps for k, v in hybrid_launches_per_step(run).items()}
+    for r in lines:
+        if not r["grads"]["max_rel_diff"] <= HYBRID_GRAD_RTOL[run]:
+            problems.append(("grads", "%s rank %d's step-0 gradients part "
+                             "from one process's by %g at %s"
+                             % (name, r["rank"], r["grads"]["max_rel_diff"],
+                                r["grads"]["leaf"])))
+        if any(r["launches"][k] != v for k, v in want.items()):
+            problems.append(("launches", "%s rank %d launched %r, expected "
+                             "%r" % (name, r["rank"], r["launches"], want)))
+        if not all(np.isfinite(x) for x in r["losses"]):
+            problems.append(("loss", "%s: a loss is not finite" % name))
+    return problems
+
+
+def phase_train_hybrid(smi: str) -> dict:
+    """The model axes beside each other and beside sp, through the port's
+    path (``run_training`` -> ``build_train_step`` on a mesh of tp, sp
+    and ep, the reference's rule tables), one world of eight workers
+    under deterministic algorithms with TF32 off and the MoE kernels on:
+
+    (a) the reference's dry-run program 1 (``__graft_entry__.py:65-96``):
+        BERT TINY with 4 experts in every layer, ``moe_rules() +
+        bert_rules()``, ``seq_axis="sp"``, adamw(1e-3) under the wd mask,
+        clip 1.0, a batch of 2 x 32, on ``{"dp": 1, "tp": 2, "sp": 2,
+        "ep": 2}``, HYBRID_STEPS steps: attention on each rank's 2 heads
+        over the sp ring, B4 on each rank's 2 local experts;
+    (b) GPT-2 small's width (768, 12 heads, T 1024) cut to 2 layers, 8
+        experts in every layer, ``gpt_rules() + moe_rules()``, a batch of
+        4 x 1024 on ``{"tp": 2, "sp": 2, "ep": 2}`` (``examples/
+        train_gpt.make_job`` with ``TPUJOB_SP=2``), HYBRID_STEPS steps: B2
+        on each rank's 6 heads on every ring hop, B4 on its 4 experts;
+
+    each against one process of the same job (``hybrid_check.
+    one_process``), and each planted fault of ``tp_check.HYBRID_FAULTS``
+    in its run for HYBRID_FAULT_STEPS steps, which its gate (HYBRID_FAULTS)
+    must reject. The workers start through ``python -m
+    paddle_operator_tpu_torch.launch``; NCCL a card each where the
+    machine has a card a worker, else gloo on this card (a correctness
+    run, not a rate). Gates: :func:`_hybrid_problems`. Printed: step ms a
+    rank, the tp, sp and ep collectives a step, peak GB a rank and the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+    world = hybrid_check.CARD_WORKERS
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    try:
+        one = {run: hybrid_check.one_process(run, HYBRID_STEPS, tmp)
+               for run in hybrid_check.CARD_RUNS}
+        torch.cuda.empty_cache()
+        t_world = time.perf_counter()
+        scenarios = [{"kind": "card", "name": run, "run": run,
+                      "steps": HYBRID_STEPS, "grads_ref": one[run]["grads"]}
+                     for run in hybrid_check.CARD_RUNS]
+        scenarios += [{"kind": "card", "name": run + "_" + fault,
+                       "run": run, "steps": HYBRID_FAULT_STEPS,
+                       "fault": fault, "grads_ref": one[run]["grads"]}
+                      for fault, (run, _) in HYBRID_FAULTS.items()]
+        lines = [ln for r in hybrid_check.launch(
+            {"out": os.path.join(tmp, "world"), "scenarios": scenarios},
+            world=world, backend=backend, timeout=600) for ln in r]
+        world_s = time.perf_counter() - t_world
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs: dict = {}
+    for line in lines:
+        runs.setdefault(line["scenario"], []).append(line)
+    runs = {k: sorted(v, key=lambda r: r["rank"]) for k, v in runs.items()}
+    gates, summary = {}, {}
+    for name, rs in runs.items():
+        run = rs[0]["run"]
+        steps = len(rs[0]["losses"])
+        ref = dict(one[run], losses=one[run]["losses"][:steps])
+        gates[name] = _hybrid_problems(name, rs, ref)
+        losses = hybrid_losses(rs)
+        summary[name] = {
+            "losses": losses, "one_process_losses": one[run]["losses"],
+            "max_rel_loss_diff_vs_one_process": max(rel_diffs(
+                losses, one[run]["losses"])),
+            "step0_norm": rs[0]["grad_norms"][0],
+            "one_process_step0_norm": one[run]["grad_norm"],
+            "grads": [r["grads"] for r in rs],
+            "step_ms_median": [statistics.median(r["step_ms"][1:] or
+                                                 r["step_ms"]) for r in rs],
+            "collectives_per_step": [
+                {group: {k: v / steps for k, v in r[group].items()}
+                 for group in ("tp_traffic", "sp_traffic", "moe_traffic")}
+                for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "expected_per_step": hybrid_launches_per_step(run),
+            "peak_gb": [r["peak_gb"] for r in rs],
+            "wall_s": [r["wall_s"] for r in rs],
+            "gates_failed": sorted({g for g, _ in gates[name]})}
+    out = {"phase": "train_hybrid", "card": smi, "backend": backend,
+           "note": "workers share this one card over gloo: a correctness "
+                   "check, not a multi-GPU rate"
+                   if backend == "gloo" else "a card a worker",
+           "runs": summary,
+           "tolerance": {"loss_rel": HYBRID_LOSS_RTOL,
+                         "step0_loss_rel": HYBRID_LOSS0_RTOL,
+                         "norm_rel": HYBRID_NORM_RTOL,
+                         "grad_rel": HYBRID_GRAD_RTOL},
+           "world_s": world_s, "seconds": time.perf_counter() - t0}
+    emit(out)
+    for name in hybrid_check.CARD_RUNS:
+        r = summary.get(name)
+        if r is None:
+            continue
+        c = r["collectives_per_step"][0]
+        tp, sp, ep = c["tp_traffic"], c["sp_traffic"], c["moe_traffic"]
+        print("train_hybrid %s (%s, %s): collectives a step a rank: tp %d "
+              "(%.1f MB, %.3f s host), sp %d hops %d all-to-alls (%.1f MB, "
+              "%.3f s host), MoE %d (%.1f MB, %.3f s host); step ms a rank "
+              "%s; peak GB %s; off one process by %.3g" % (
+                  name, smi, backend,
+                  sum(tp[k] for k in ("sum_forward", "sum_backward", "max",
+                                      "argmax", "gather")),
+                  tp["bytes"] / 1e6, tp["seconds"], sp["ring_shift"],
+                  sp["all_to_all"], sp["bytes"] / 1e6, sp["seconds"],
+                  sum(ep[k] for k in ("routing", "sum_forward",
+                                      "sum_backward")),
+                  ep["bytes"] / 1e6, ep["seconds"],
+                  ["%.1f" % x for x in r["step_ms_median"]],
+                  ["%.2f" % x for x in r["peak_gb"]],
+                  r["max_rel_loss_diff_vs_one_process"]), flush=True)
+    print("train_hybrid (%s): phase %.1f s, world %.1f s"
+          % (smi, out["seconds"], world_s), flush=True)
+    problems = []
+    for name, p in gates.items():
+        fault = runs[name][0]["fault"]
+        if fault:
+            if HYBRID_FAULTS[fault][1] not in {g for g, _ in p}:
+                problems.append("the %s gate missed the planted fault %s"
+                                % (HYBRID_FAULTS[fault][1], fault))
+        else:
+            problems += [msg for _, msg in p]
+    missing = (set(hybrid_check.CARD_RUNS) | {
+        run + "_" + f for f, (run, _) in HYBRID_FAULTS.items()}) - set(runs)
+    if missing:
+        problems.append("runs missing: %s" % sorted(missing))
+    if problems:
+        fail("train_hybrid: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4517,6 +4985,8 @@ def main() -> int:
     tp_out = phase_train_tp(env["nvidia_smi"],
                             train_gpt_out["losses"]["flash"],
                             train["losses"]["fused_sgd"])
+    pp_out = phase_train_pp(env["nvidia_smi"])
+    hybrid_out = phase_train_hybrid(env["nvidia_smi"])
     # the MoE-ep path's launches, summed over the ranks of its sound runs
     moe_ep_launches = {
         k: sum(n[k] for name in MOE_EP_SOUND
@@ -4536,6 +5006,15 @@ def main() -> int:
         k: sum(n[k] for name in tp_check.CARD_RUNS
                for n in tp_out["runs"][name]["launches"])
         for k in ("fused_sgd", "flash_fwd", "flash_dq", "flash_dkv")}
+    # the pipeline's and the hybrid path's launches, summed over the ranks
+    # of their sound runs
+    pp_launches = {k: sum(n[k] for n in pp_out["runs"]["pp4"]["launches"])
+                   for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    hybrid_launches = {
+        k: sum(n[k] for name in hybrid_check.CARD_RUNS
+               for n in hybrid_out["runs"][name]["launches"])
+        for k in ("flash_fwd", "flash_dq", "flash_dkv", "dispatch",
+                  "combine")}
     paged_shapes = kernels["kernels"][0]["shapes"]
     full = next(s for s in paged_shapes if s["case"] == "full_width"
                 and s["q_dtype"] == s["kv_dtype"] == str(torch.float32))
@@ -4552,7 +5031,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": train_gpt_out["launches"]["flash"][key]
             + elastic_launches["flash_" + key]
-            + moe_ep_launches["flash_" + key] + tp_launches["flash_" + key],
+            + moe_ep_launches["flash_" + key] + tp_launches["flash_" + key]
+            + pp_launches["flash_" + key] + hybrid_launches["flash_" + key],
             "max_abs_err": max(c["errors"][o]["max_abs_err"]
                                for c in cases for o in outputs),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -4565,7 +5045,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": MOE_SOURCE,
             "replaces": replaces,
             "launches": moe_out["launches"]["kernels"][key]
-            + moe_ep_launches[key],
+            + moe_ep_launches[key] + hybrid_launches[key],
             "max_abs_err": max(r["max_abs_err"]
                                for case in kernels["moe"]["checks"].values()
                                for n, r in case.items()
@@ -4598,7 +5078,13 @@ def main() -> int:
           "tp_launches_per_rank": {
               name: tp_out["runs"][name]["launches"]
               for name in tp_check.CARD_RUNS},
-          "train_tp_seconds": tp_out["seconds"]})
+          "train_tp_seconds": tp_out["seconds"],
+          "pp_launches_per_rank": pp_out["runs"]["pp4"]["launches"],
+          "train_pp_seconds": pp_out["seconds"],
+          "hybrid_launches_per_rank": {
+              name: hybrid_out["runs"][name]["launches"]
+              for name in hybrid_check.CARD_RUNS},
+          "train_hybrid_seconds": hybrid_out["seconds"]})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,

@@ -32,8 +32,10 @@ build it; there is no env knob for it) each worker holds its block of
 every MoE layer's experts, and on a mesh with a ``tp`` axis (``{"dp": 2,
 "tp": 2}``, again from the caller's ``mesh_axes``) each worker holds its
 heads, its MLP columns and its vocabulary tiles of the dense model and
-computes on them (Megatron's layout, :mod:`..parallel.train`); MoE layers
-under tp raise. The rules over an axis the mesh lacks are dropped.
+computes on them (Megatron's layout, :mod:`..parallel.train`); a MoE
+layer, which no tp rule splits, runs whole on every tp rank. The axes
+combine (``{"tp": 2, "sp": 2, "ep": 2}`` with ``TPUJOB_SP=2``). The
+rules over an axis the mesh lacks are dropped.
 """
 
 import functools

@@ -22,7 +22,10 @@ once a forward). ``remat`` recomputes each layer in the backward
 Under a mesh the loss's denominator is the global batch's: each rank
 divides its masked sum by the mean of the token group's mask sums, so
 that the ranks' losses averaged over the batch axis are the reference's
-loss on the global batch whatever the mask puts on each rank.
+loss on the global batch whatever the mask puts on each rank. Under a
+sequence split (the train step's ``seq_axis``) :func:`loss_fn` takes
+this rank's block of every sequence and runs attention over the sp axis
+(ring or Ulysses), as GPT's does.
 
 Under tensor parallelism (``bert_rules`` on a ``tp`` axis:
 :func:`..parallel.collectives.model_tiles`) the encoder layers run on
@@ -185,12 +188,50 @@ def loss_fn(params: Dict, batch: Dict, train: bool = True,
     """Masked-LM loss. batch = {input_ids, labels, [type_ids,
     attention_mask, loss_mask]}; labels ``[B, S]``, positions with
     ``loss_mask`` 0 ignored. Returns ``(loss, {"accuracy", "moe_aux"})``;
-    the loss includes ``moe_aux_weight * moe_aux``."""
-    hidden, moe_aux = encode(params, batch["input_ids"], batch.get("type_ids"),
-                             batch.get("attention_mask"), dtype=dtype,
-                             remat=remat, attn_impl=attn_impl)
+    the loss includes ``moe_aux_weight * moe_aux``.
+
+    Under a sequence split of n blocks (the train step's ``seq_axis``:
+    ``collectives.seq_block()``) the batch's token axis is whole; this
+    rank runs block i of every leaf at positions ``i S/n +
+    arange(S/n)``, with ``attn_impl`` a ring or Ulysses attention over
+    the same axis, and its loss and accuracy are the block's sums over
+    the global masked count, so that the blocks' losses add up to the
+    replica's. The ring takes no key mask: an all-ones
+    ``attention_mask`` (what :func:`synthetic_batch` gives) is dropped,
+    one with zeros raises."""
+    ids, type_ids, amask = (batch["input_ids"], batch.get("type_ids"),
+                            batch.get("attention_mask"))
+    labels, mask = batch["labels"].long(), batch.get("loss_mask")
+    index, count = collectives.seq_block()
+    positions = None
+    if count > 1:
+        s = ids.shape[1]
+        if s % count:
+            raise ValueError("seq len %d must divide ring size %d"
+                             % (s, count))
+        if not callable(attn_impl):
+            raise ValueError(
+                "under a sequence split the attention runs over the sp "
+                "axis: pass ring or Ulysses attention as attn_impl")
+        if amask is not None:
+            if not bool(torch.all(amask != 0)):
+                raise NotImplementedError(
+                    "an attention_mask with zeros under a sequence split: "
+                    "ring and Ulysses attention take no key mask")
+            amask = None  # all ones: the attention sees every key
+        s_local = s // count
+        start = index * s_local
+        positions = start + torch.arange(s_local, device=ids.device)
+        ids, labels = ids[:, start:start + s_local], \
+            labels[:, start:start + s_local]
+        if type_ids is not None:
+            type_ids = type_ids[:, start:start + s_local]
+        if mask is not None:
+            mask = mask[:, start:start + s_local]
+    hidden, moe_aux = encode(params, ids, type_ids, amask, dtype=dtype,
+                             remat=remat, attn_impl=attn_impl,
+                             positions=positions)
     logits = mlm_logits(params, hidden, dtype)
-    labels = batch["labels"].long()
     tile = collectives.moe_split().tile("mlm/decoder/kernel")
     if tile is not None:
         lse, picked, argmax = nn.xent_pieces(
@@ -201,10 +242,11 @@ def loss_fn(params: Dict, batch: Dict, train: bool = True,
         logp = torch.log_softmax(logits.float(), dim=-1)
         picked = logp.gather(-1, labels[..., None])[..., 0]
         argmax = logits.argmax(dim=-1)
-    mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=F32, device=labels.device)
             if mask is None else mask.to(F32))
-    denom = torch.clamp(global_mean(torch.sum(mask)), min=1.0)
+    # the token group's mean count; a block of a sequence holds 1/count
+    # of its replica's
+    denom = torch.clamp(global_mean(torch.sum(mask)) * count, min=1.0)
     loss = -torch.sum(picked * mask) / denom
     loss = loss + moe_aux_weight * moe_aux
     acc = torch.sum((argmax == labels).to(F32) * mask) / denom

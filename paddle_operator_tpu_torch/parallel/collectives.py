@@ -39,7 +39,16 @@ JAX package's dp-sharded train step, written out for
   vocabulary split by rows, :func:`vocab_xent_pieces` the log-sum-exp,
   the picked logit and the argmax of logits split by columns, and
   :func:`gather_last` joins column tiles with the rank's slice as its
-  backward. :data:`tp_traffic` counts their collectives.
+  backward. :data:`tp_traffic` counts their collectives;
+* the collectives of pipeline parallelism (:mod:`.pipeline`):
+  :func:`pipeline_hop` moves a stage's output to the next stage (the
+  reference's ``lax.ppermute``, its backward the hop the other way), the
+  output's sum over the stages is :func:`sum_forward` (its backward the
+  identity: the output is replicated, and so is its cotangent) and the
+  replicated input goes through :func:`sum_backward`;
+  :func:`stage_slice` takes a stage's block of a whole stacked leaf, with
+  the gather of the blocks' cotangents as its backward.
+  :data:`pp_traffic` counts them.
 
 Under a sequence axis each rank's loss and gradients are parts of its
 replica's (``shards`` ranks hold the blocks of one sequence), so
@@ -285,10 +294,13 @@ def _gloo_staged(group: Group, x: torch.Tensor) -> bool:
     return x.device.type == "cuda" and not _on_nccl(group)
 
 
-def _exchange(group: Group, send: torch.Tensor, run) -> torch.Tensor:
+def _exchange(group: Group, send: torch.Tensor, run,
+              traffic: Optional[dict] = None) -> torch.Tensor:
     """``run(host_send, host_recv)`` on ``send`` (contiguous) and a buffer
     of its shape, staged through the host on gloo; returns the received
-    tensor on ``send``'s device, and counts the bytes and seconds."""
+    tensor on ``send``'s device, and counts the bytes and seconds in
+    ``traffic`` (default :data:`transfers`)."""
+    traffic = transfers if traffic is None else traffic
     t0 = time.perf_counter()
     staged = _gloo_staged(group, send)
     out = send.to("cpu") if staged else send
@@ -296,14 +308,17 @@ def _exchange(group: Group, send: torch.Tensor, run) -> torch.Tensor:
     run(out, recv)
     if staged:
         recv = recv.to(send.device)
-    transfers["bytes"] += send.numel() * send.element_size()
-    transfers["seconds"] += time.perf_counter() - t0
+    traffic["bytes"] += send.numel() * send.element_size()
+    traffic["seconds"] += time.perf_counter() - t0
     return recv
 
 
-def _shift(x: torch.Tensor, group: Group, step: int) -> torch.Tensor:
+def _shift(x: torch.Tensor, group: Group, step: int,
+           traffic: Optional[dict] = None,
+           kind: str = "ring_shift") -> torch.Tensor:
     """``x`` sent to the rank ``step`` places on around ``group``'s ring,
-    and the tensor of the rank ``step`` places back received."""
+    and the tensor of the rank ``step`` places back received; counted as
+    ``kind`` in ``traffic`` (default :data:`transfers`)."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
     dst = dist.get_global_rank(group, (r + step) % n)
     src = dist.get_global_rank(group, (r - step) % n)
@@ -314,8 +329,9 @@ def _shift(x: torch.Tensor, group: Group, step: int) -> torch.Tensor:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
 
-    transfers["ring_shift"] += 1
-    return _exchange(group, x.detach().contiguous(), run)
+    traffic = transfers if traffic is None else traffic
+    traffic[kind] += 1
+    return _exchange(group, x.detach().contiguous(), run, traffic)
 
 
 def _all_to_all(x: torch.Tensor, group: Group, split_axis: int,
@@ -339,16 +355,20 @@ def _all_to_all(x: torch.Tensor, group: Group, split_axis: int,
 
 class _RingShift(torch.autograd.Function):
     """One hop forward around the ring; the backward sends the cotangent
-    one hop back (``ppermute`` transposes itself)."""
+    one hop back (``ppermute`` transposes itself). ``kinds``: the
+    counts of the two directions in ``traffic``."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group: Group) -> torch.Tensor:
-        ctx.group = group
-        return _shift(x, group, 1)
+    def forward(ctx, x: torch.Tensor, group: Group,
+                traffic: Optional[dict], kinds: Tuple[str, str]
+                ) -> torch.Tensor:
+        ctx.args = (group, traffic, kinds[1])
+        return _shift(x, group, 1, traffic, kinds[0])
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return _shift(grad, ctx.group, -1), None
+        group, traffic, kind = ctx.args
+        return _shift(grad, group, -1, traffic, kind), None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -373,7 +393,7 @@ def ring_shift(x: torch.Tensor, group: Group) -> torch.Tensor:
     group of one."""
     if _alone(group):
         return x
-    return _RingShift.apply(x, group)
+    return _RingShift.apply(x, group, None, ("ring_shift", "ring_shift"))
 
 
 def all_to_all(x: torch.Tensor, group: Group, split_axis: int,
@@ -701,3 +721,61 @@ def gather_last(x: torch.Tensor, tile: Tile) -> torch.Tensor:
     if _alone(tile.group):
         return x
     return _GatherLast.apply(x, tile)
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+# ---------------------------------------------------------------------------
+
+#: the pipeline's collectives since the last reset: the stage-to-stage
+#: hops of the forward and of the backward, the output's sums over the
+#: stages (forward), the input's cotangent sums (backward) and the gathers
+#: of a whole stacked tree's gradient, their bytes (this rank's send) and
+#: host seconds
+pp_traffic = {"hop": 0, "hop_backward": 0, "sum_forward": 0,
+              "sum_backward": 0, "gather": 0, "bytes": 0, "seconds": 0.0}
+
+
+def pipeline_hop(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The pipeline's ``lax.ppermute`` over ``group``: stage i's ``x``
+    sent to stage (i + 1) mod n, stage (i - 1) mod n's received; the
+    backward sends the cotangent back the other way. Counted in
+    :data:`pp_traffic`. The identity for a group of one."""
+    if _alone(group):
+        return x
+    return _RingShift.apply(x, group, pp_traffic, ("hop", "hop_backward"))
+
+
+class _StageSlice(torch.autograd.Function):
+    """Block ``index`` of a leaf stacked over the stages (its leading
+    axis of 1 kept); the backward gathers every stage's block of the
+    cotangent over the group, so that each rank holds the whole stacked
+    leaf's gradient, as the reference's gradient of a sharded array is
+    whole."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Group,
+                index: int) -> torch.Tensor:
+        ctx.group = group
+        return x.narrow(0, index, 1).clone()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        t0 = time.perf_counter()
+        staged = _gloo_staged(ctx.group, grad)
+        send = grad.detach().contiguous()
+        send = send.cpu() if staged else send
+        parts = [torch.empty_like(send) for _ in range(size(ctx.group))]
+        dist.all_gather(parts, send, group=ctx.group)
+        out = torch.cat(parts, dim=0)
+        _count(pp_traffic, "gather", send, t0)
+        return (out.to(grad.device) if staged else out), None, None
+
+
+def stage_slice(x: torch.Tensor, group: Group, index: int) -> torch.Tensor:
+    """``x[index:index + 1]`` of a leaf stacked over the ranks of
+    ``group`` (one block a rank), with the gather of the blocks'
+    cotangents as its backward. A plain slice for a group of one."""
+    if _alone(group):
+        return x.narrow(0, index, 1)
+    return _StageSlice.apply(x, group, index)

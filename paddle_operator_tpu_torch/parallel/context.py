@@ -226,7 +226,8 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Re-shards [B, H, S/n, D] -> [B, H/n, S, D] with one all-to-all (q, k
     and v together), runs local attention over the whole sequence for
-    H/n heads, then swaps back. Requires H % n == 0.
+    H/n heads, then swaps back. Requires H % n == 0, H this rank's
+    heads (under tp, H / tp of the model's): it raises otherwise.
 
     ``impl``: "auto" runs the flash-attention kernels when the tensors
     are on CUDA and :func:`..ops.attention.supports` holds for
@@ -236,8 +237,13 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_impl(impl)
     b, h, s_local, d = q.shape
     if h % mesh.axis_size(axis):
-        raise ValueError("heads %d must divide sp size %d"
-                         % (h, mesh.axis_size(axis)))
+        tp = mesh.axis_size("tp")
+        raise ValueError(
+            "heads %d must divide sp size %d: Ulysses splits this rank's "
+            "heads over %r%s; take ring attention, or an sp that divides "
+            "them" % (h, mesh.axis_size(axis), axis,
+                      "" if tp == 1 else " (under tp %d a rank holds H / %d "
+                      "of the model's H heads)" % (tp, tp)))
     n, _, group = _axis(mesh, axis)
     if scale is None:
         scale = 1.0 / math.sqrt(d)

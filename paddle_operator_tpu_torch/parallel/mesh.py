@@ -2,10 +2,10 @@
 ``make_mesh`` and ``mesh_from_env``, over processes.
 
 The port runs one process per card, so a mesh axis spans processes of
-the ``torch.distributed`` world. ``dp``, ``sp``, ``ep``, ``tp`` and
-``fsdp`` are ported: an axis of any other name with a size above 1 (the
-pipeline's ``pp``) raises, as does a multislice ``TPUJOB_DCN_MESH``
-(ROADMAP A5 holds both).
+the ``torch.distributed`` world. ``dp``, ``sp``, ``ep``, ``tp``,
+``fsdp`` and the pipeline's ``pp`` are ported: an axis of any other name
+with a size above 1 raises, as does a multislice ``TPUJOB_DCN_MESH``
+(ROADMAP A5.3).
 
 Ranks are laid out as the reference lays out devices: row-major over the
 axes in dict order, so with ``{"dp": 2, "sp": 2}`` (dp outermost, sp
@@ -14,7 +14,8 @@ world group (``group``: the gradient and metric reductions, sync
 BatchNorm, the checkpoint) and, for every axis, the process group of the
 ranks that differ from this one only along it (:meth:`Mesh.axis_group`):
 the ring and the all-to-alls of sequence parallelism run on the sp
-group, the batch split takes the dp coordinate, the ep group sums a MoE
+group, the pipeline's hops on the pp group (:mod:`.pipeline`), the
+batch split takes the dp coordinate, the ep group sums a MoE
 layer's local experts, the tp group sums a row-parallel layer's partial
 products and the fsdp group gathers ResNet's classifier. :meth:`Mesh.group_over` gives the group of the
 ranks that differ from this one only along several axes: the ranks that
@@ -41,7 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch.distributed as dist
 
 #: the mesh axes the port has ported
-PORTED_AXES = ("dp", "sp", "ep", "tp", "fsdp")
+PORTED_AXES = ("dp", "sp", "ep", "tp", "fsdp", "pp")
 
 
 @dataclass(frozen=True)
@@ -188,8 +189,7 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     for name, size in axes.items():
         if name not in PORTED_AXES and size > 1:
             raise NotImplementedError(
-                "mesh axis %r of size %d: the port shards over %s only; "
-                "pipeline meshes wait for ROADMAP A5"
+                "mesh axis %r of size %d: the port shards over %s only"
                 % (name, size, ", ".join(PORTED_AXES)))
     if not dist.is_initialized():
         return Mesh(axes)
@@ -202,7 +202,8 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
 
 
 def mesh_from_env(world: Optional[int] = None) -> Mesh:
-    """Mesh shape from ``TPUJOB_MESH`` (e.g. ``dp=2,sp=2``), over the
+    """Mesh shape from ``TPUJOB_MESH`` (e.g. ``dp=2,sp=2`` or
+    ``pp=4,dp=2``), over the
     ported axes; a multislice ``TPUJOB_DCN_MESH`` is not ported and
     raises."""
     def parse(s: str) -> Dict[str, int]:
@@ -216,6 +217,6 @@ def mesh_from_env(world: Optional[int] = None) -> Mesh:
     if parse(os.environ.get("TPUJOB_DCN_MESH", "")):
         raise NotImplementedError(
             "TPUJOB_DCN_MESH (multislice hybrid meshes) is not ported; "
-            "ROADMAP A5")
+            "ROADMAP A5.3")
     return make_mesh(parse(os.environ.get("TPUJOB_MESH", "")) or None,
                      world)

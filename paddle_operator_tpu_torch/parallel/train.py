@@ -38,10 +38,22 @@ leaves from :func:`.collectives.model_tiles`. The replicated leaves'
 gradients take the world mean as before; a split leaf's is averaged
 over the ranks that hold the same tile (every axis but its own), and
 the clip's global norm adds each split leaf's squares summed over its
-axes, so every rank clips by the same norm. What the port does not hold
-raises ``NotImplementedError`` naming ROADMAP A5: tp or fsdp together
-with sp or ep, MoE layers under tp, rules over another axis, and rules
-over tp or fsdp that no layer computes on (the CTR tables).
+axes, so every rank clips by the same norm.
+
+The model axes combine with each other and with sp: on ``{"tp": 2,
+"sp": 2, "ep": 2}`` (the reference's dry-run mesh) attention runs on a
+tp rank's heads over the sp ring or Ulysses, and a MoE layer, whose
+leaves no tp rule splits, runs whole on every tp rank, routing over the
+ranks that hold distinct tokens (dp x sp) and splitting its experts over
+ep. The reductions above hold there unchanged: a replicated leaf (a
+LayerNorm, a row-parallel bias) is summed over sp and averaged over the
+rest, a tile over the ranks along every axis but its own, and the
+global norm counts each tile's squares over its own axes (tp tiles over
+tp, ep tiles over ep). What the port does not hold raises
+``NotImplementedError``: a ``pp`` axis above 1 (the train step does not
+pipeline; :func:`.pipeline.pipeline_apply` runs a stack of stages over
+it), rules over another axis, and rules over tp or fsdp that no layer
+computes on (the CTR tables, ROADMAP A5.4).
 
 Under ``seq_axis`` (sequence parallelism over a ``dp`` x ``sp`` mesh) the
 batch is split over the batch axis only: a rank's block is its dp block
@@ -117,35 +129,31 @@ def batch_axis_of(accum_steps: int = 1, steps_per_call: int = 1) -> int:
 
 
 def _check_mesh(mesh: Mesh, rules: Any, batch_axis: str,
-                seq_axis: Optional[str], params: Any) -> None:
+                seq_axis: Optional[str]) -> None:
     """Refuse what the port cannot shard: a sequence axis or a batch axis
-    the mesh lacks; rules that split over an axis of the mesh other than
+    the mesh lacks; a ``pp`` axis above 1 (the reference's step only
+    replicates over it; :func:`.pipeline.pipeline_apply` is how the port
+    uses the axis); rules that split over an axis of the mesh other than
     the model axes, ``ep`` on another than a leaf's leading axis, and
-    rules over tp or fsdp outside :data:`HONOURED_RULES`; tp or fsdp above
-    1 together with sp or ep above 1; MoE layers (``moe/`` leaves) with tp
-    above 1. Rules whose axes are all missing from the mesh mean
-    "replicated", as the reference's rule tables do there."""
+    rules over tp or fsdp outside :data:`HONOURED_RULES`. Rules whose
+    axes are all missing from the mesh mean "replicated", as the
+    reference's rule tables do there."""
     if seq_axis is not None and seq_axis not in mesh.shape:
         raise NotImplementedError(
             "seq_axis=%r is not an axis of the mesh %s: sequence "
-            "parallelism splits the sequence over an sp axis of the mesh "
-            "(ROADMAP A5 holds the others)" % (seq_axis, mesh.shape))
-    tensor = [a for a in ("tp", "fsdp") if mesh.axis_size(a) > 1]
-    beside = [a for a in ("sp", EXPERT_AXIS) if mesh.axis_size(a) > 1]
-    if tensor and beside:
+            "parallelism splits the sequence over an sp axis of the mesh"
+            % (seq_axis, mesh.shape))
+    if mesh.axis_size("pp") > 1:
         raise NotImplementedError(
-            "mesh %s: %s together with %s is not ported (ROADMAP A5)"
-            % (mesh.shape, " and ".join(tensor), " and ".join(beside)))
+            "mesh %s: the train step does not pipeline over pp; run the "
+            "stages through parallel.pipeline.pipeline_apply (GPipe over "
+            "the pp axis) in the loss" % (mesh.shape,))
     if batch_axis not in mesh.shape and any(
-            a not in MODEL_AXES for a in mesh.shape):
-        # a mesh of model axes alone (``{"tp": 4}``) splits no batch
+            a not in MODEL_AXES + (seq_axis,) for a in mesh.shape):
+        # a mesh of model axes and the sequence axis alone (``{"tp": 4}``,
+        # ``{"tp": 2, "sp": 2}``) splits no batch
         raise ValueError("batch axis %r is not an axis of the mesh %s"
                          % (batch_axis, mesh.shape))
-    if mesh.axis_size("tp") > 1 and any(
-            "/moe/" in "/" + k for k in bridge.flatten(params)):
-        raise NotImplementedError(
-            "MoE layers under tp (mesh %s) are not ported (ROADMAP A5)"
-            % (mesh.shape,))
     for pattern, spec in rules or ():
         for dim, axis in enumerate(spec):
             names = axis if isinstance(axis, tuple) else (axis,)
@@ -166,7 +174,7 @@ def _check_mesh(mesh: Mesh, rules: Any, batch_axis: str,
                         pattern, tuple(spec)) not in HONOURED_RULES:
                     raise NotImplementedError(
                         "sharding rule %r over %r: no layer of the port "
-                        "computes on such a tile (ROADMAP A5)"
+                        "computes on such a tile (ROADMAP A5.4)"
                         % (pattern, name))
 
 
@@ -329,7 +337,7 @@ def model_tiles(mesh: Mesh, tiles: Dict[str, sharding.LeafTile]
         if len(t.blocks) != 1:
             raise NotImplementedError(
                 "leaf %r is split on %d dimensions; the layers compute on "
-                "tiles of one (ROADMAP A5)" % (path, len(t.blocks)))
+                "tiles of one" % (path, len(t.blocks)))
         (index, count), = t.blocks.values()
         out[path[len("params/"):]] = collectives.Tile(
             mesh.group_over(t.axes), index, count)
@@ -382,7 +390,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
       extra leading ``[K]`` axis are sliced one step at a time; leaves of
       the sample's shape are reused every step. Metrics come back stacked
       ``[K]``.
-    * ``mesh``: a :class:`.mesh.Mesh` over dp, sp, ep, tp and fsdp.
+    * ``mesh``: a :class:`.mesh.Mesh` over dp, sp, ep, tp and fsdp, in
+      any combination (a ``pp`` axis of size 1).
       ``host_local_batches=False``: ``step_fn`` takes the GLOBAL batch,
       the same on every rank, and each rank trains on its contiguous
       block of the batch axis (:func:`batch_axis_of`), cut by its dp
@@ -405,7 +414,7 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer, params: Any,
     group, shards = None, 1
     tiles_of: Dict[str, sharding.LeafTile] = {}
     if mesh is not None:
-        _check_mesh(mesh, rules, batch_axis, seq_axis, params)
+        _check_mesh(mesh, rules, batch_axis, seq_axis)
         group = mesh.group
         if seq_axis is not None:
             shards = mesh.axis_size(seq_axis)

@@ -17,11 +17,12 @@ the card (workers sharing one card over gloo, or a card each over NCCL).
 
 Scenarios (``kind``):
 
-* ``step``: ``build_train_step`` of GPT or BERT TINY in fp32 on a mesh
-  with the reference's rules (``steps_per_call`` and ``init_state``
-  too), or of ResNet-18 over fsdp with ``resnet_rules``: the losses, the
-  clip's norm, the state (this rank's tiles) and digests of its
-  replicated and split leaves;
+* ``step``: ``build_train_step`` of GPT or BERT TINY (dense or MoE) in
+  fp32 on a mesh with the reference's rules (``steps_per_call`` and
+  ``init_state`` too; under an sp axis ``seq_axis="sp"`` with ring or
+  Ulysses attention, ``attn``), or of ResNet-18 over fsdp with
+  ``resnet_rules``: the losses, the clip's norm, the state (this rank's
+  tiles) and digests of its replicated and split leaves;
 * ``run``: ``run_training`` of a small GPT job on a mesh, writing a
   checkpoint; ``restore``: its newest step restored into a state built
   on another mesh, shard-wise, with the files each rank opened;
@@ -42,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import sys
@@ -55,9 +57,9 @@ import torch.distributed as dist
 from paddle_operator_tpu_torch import bridge, dp_check, migrate_check, \
     moe_check
 from paddle_operator_tpu_torch.models import bert, gpt, resnet
-from paddle_operator_tpu_torch.ops import attention, nn, optim
+from paddle_operator_tpu_torch.ops import attention, moe, nn, optim
 from paddle_operator_tpu_torch.parallel import build_train_step, \
-    collectives, sharding
+    collectives, context, sharding
 from paddle_operator_tpu_torch.parallel import train as train_step
 from paddle_operator_tpu_torch.parallel.mesh import make_mesh
 from paddle_operator_tpu_torch.runner import TrainJob, bind_mesh, \
@@ -76,6 +78,18 @@ FAULTS = ("row_sum_dropped", "column_input_unsummed", "norm_without_tp",
 #: rank before the sum (biases are zero at init: only a tree with
 #: non-zero biases shows it)
 CPU_FAULTS = FAULTS + ("row_bias_every_rank",)
+#: the faults of the model axes beside sp and ep (``hybrid_check``): under
+#: tp x sp, the LayerNorms' gradients left as each sp rank's block made
+#: them (averaged over the other axes, not summed over sp); under tp x
+#: ep, the MoE layers' expert leaves taken for tiles over tp as well
+#: (their gradients averaged over dp x sp alone, their squares counted
+#: over the ep x tp group in the clip's norm)
+HYBRID_FAULTS = ("ln_grad_unsummed_over_sp", "moe_leaves_as_tp_tiles")
+
+
+def _is_ln(path: str) -> bool:
+    parts = path.split("/")
+    return len(parts) > 1 and parts[-2].endswith("ln")
 
 
 def _fault_patch(fault: str):
@@ -112,6 +126,27 @@ def _fault_patch(fault: str):
         orig = collectives.last_tile
         return collectives, "last_tile", \
             lambda grad, index, count: orig(grad, 0, count)
+    if fault == "ln_grad_unsummed_over_sp":
+        orig = train_step._reduce_grads
+
+        def partial_ln(grads, mesh, shards):
+            out = orig(train_step._part(grads, lambda k: not _is_ln(k)),
+                       mesh, shards)
+            ln = collectives.mean_grads(
+                train_step._part(grads, _is_ln),
+                train_step.replica_group(mesh, ("sp",)))
+            return train_step._merge(out, ln)
+        return train_step, "_reduce_grads", partial_ln
+    if fault == "moe_leaves_as_tp_tiles":
+        orig = train_step.layout
+
+        def with_tp(params, optimizer, mesh, rules, local=False):
+            out = orig(params, optimizer, mesh, rules, local)
+            if mesh is None or mesh.axis_size("tp") == 1:
+                return out
+            return {k: (t._replace(axes=tuple(sorted(t.axes + ("tp",))))
+                        if "/moe/" in k else t) for k, t in out.items()}
+        return train_step, "layout", with_tp
     raise ValueError("unknown fault %r" % fault)
 
 
@@ -132,29 +167,57 @@ def planted(fault: str):
 
 
 def model_rules(model: str) -> list:
-    """The reference's rule table of a model."""
-    return {"gpt": sharding.gpt_rules, "bert": sharding.bert_rules,
-            "resnet": sharding.resnet_rules}[model]()
+    """The rules a model's job carries: the reference's table of the
+    model, and ``moe_rules`` for GPT and BERT (BERT's in the reference's
+    dry-run order)."""
+    if model == "bert":
+        return sharding.moe_rules() + sharding.bert_rules()
+    if model == "gpt":
+        return sharding.gpt_rules() + sharding.moe_rules()
+    return sharding.resnet_rules()
 
 
-def digests(state: Any, layout: Dict[str, Any]) -> Dict[str, str]:
-    """sha256 digests of a state's replicated leaves and of its tiles."""
-    flat = bridge.flatten(state)
-    return {"replicated": dp_check.digest(
-                [v for k, v in flat.items() if k not in layout]),
-            "tiles": dp_check.digest(
-                [v for k, v in flat.items() if k in layout])}
+def sp_attention(kind: Optional[str], mesh, causal: bool) -> Any:
+    """The attention a loss runs on ``mesh``: ring or Ulysses attention
+    (``kind``) over its sp axis, or ``"auto"`` without one."""
+    if not kind or mesh.axis_size("sp") == 1:
+        return "auto"
+    fn = {"ring": context.ring_attention,
+          "ulysses": context.ulysses_attention}[kind]
+    return functools.partial(fn, mesh=mesh, axis="sp", causal=causal)
+
+
+def leaf_digests(state: Any) -> Dict[str, str]:
+    """The sha256 digest of each leaf of a state, by path: hashed once,
+    grouped by :func:`digests` and :func:`axes_digests`."""
+    return {k: dp_check.digest([v]) for k, v in bridge.flatten(state).items()}
+
+
+def _joined(hashes: Dict[str, str], keys) -> str:
+    return hashlib.sha256("".join(hashes[k] for k in keys).encode()
+                          ).hexdigest()
+
+
+def digests(state: Any, layout: Dict[str, Any],
+            hashes: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+    """Digests of a state's replicated leaves and of its tiles (from the
+    leaves' ``hashes``, :func:`leaf_digests`)."""
+    hashes = hashes or leaf_digests(state)
+    return {"replicated": _joined(hashes, [k for k in hashes
+                                           if k not in layout]),
+            "tiles": _joined(hashes, [k for k in hashes if k in layout])}
 
 
 # ---------------------------------------------------------------------------
 # CPU scenarios
 # ---------------------------------------------------------------------------
 
-def _cpu_loss(model: str):
+def _cpu_loss(model: str, attn: Any = "auto"):
     if model == "resnet":
         return functools.partial(resnet.loss_fn, dtype=torch.float32)
     mod = {"gpt": gpt, "bert": bert}[model]
-    return lambda p, b: mod.loss_fn(p, b, dtype=torch.float32)
+    return lambda p, b: mod.loss_fn(p, b, dtype=torch.float32,
+                                    attn_impl=attn)
 
 
 def cpu_optimizer(model: str, params: Any) -> optim.Optimizer:
@@ -169,13 +232,16 @@ def cpu_optimizer(model: str, params: Any) -> optim.Optimizer:
 
 
 def _step(sc: dict, rank: int, size: int) -> Dict[str, Any]:
-    """``sc["calls"]`` calls of ``build_train_step`` on ``sc["mesh"]``
-    with the model's rules, in fp32, clipped at ``clip``; ``windows``:
+    """A call of ``build_train_step`` on ``sc["mesh"]`` a batch, with the
+    model's rules, in fp32, clipped at ``clip``; under an sp axis with
+    ``seq_axis="sp"`` and ``sc["attn"]`` attention; ``windows``:
     ``steps_per_call`` 2 on stacked batches; ``stateless``: the calls
     after the first through a step built with ``init_state=False`` on
     the live state."""
     mesh = make_mesh(sc["mesh"])
     model = sc["model"]
+    loss = _cpu_loss(model, sp_attention(sc.get("attn"), mesh,
+                                         causal=model == "gpt"))
     params = bridge.params_from_numpy(dp_check.load_tree(sc["tree"]), "cpu")
     batches = [bridge.params_from_numpy(dp_check.load_tree(b), "cpu")
                for b in sc["batches"]]
@@ -188,17 +254,17 @@ def _step(sc: dict, rank: int, size: int) -> Dict[str, Any]:
                    for i in range(0, len(batches), k)]
     build = dict(mesh=mesh, rules=model_rules(model),
                  grad_clip=sc.get("clip"), steps_per_call=k,
+                 seq_axis="sp" if mesh.axis_size("sp") > 1 else None,
                  merge_stats=resnet.merge_stats if model == "resnet"
                  else None)
     losses, norms = [], []
     with planted(sc.get("fault", "")):
-        step, state = build_train_step(_cpu_loss(model), opt, params, sample,
-                                       **build)
+        step, state = build_train_step(loss, opt, params, sample, **build)
         for i, batch in enumerate(batches):
             fn = step
             if sc.get("stateless") and i > 0:
                 fn, none = build_train_step(
-                    _cpu_loss(model), opt, state["params"], sample,
+                    loss, opt, state["params"], sample,
                     init_state=False, tiles=step.layout, **build)
                 assert none is None
             state, m = fn(state, batch)
@@ -422,19 +488,38 @@ class _Recorder:
 ZERO_GRAD_LEAVES = {"bert": ("attn/k/bias",)}
 
 
+def axes_digests(hashes: Dict[str, str],
+                 layout: Dict[str, Any]) -> Dict[str, str]:
+    """Digests of a state's leaves (their ``hashes``,
+    :func:`leaf_digests`) grouped by the axes they are split over
+    (``layout``: parameter path -> ``LeafTile``; an optimizer leaf goes
+    with its parameter), ``""`` for the replicated ones: equal on the
+    ranks that hold the same tiles."""
+    groups: Dict[str, list] = {}
+    for k in hashes:
+        p = k.split("/", 1)[1] if k.startswith("params/") else next(
+            (q for q in layout if k.endswith("/" + q)), None)
+        groups.setdefault(",".join(layout[p].axes) if p in layout else "",
+                          []).append(k)
+    return {a: _joined(hashes, keys) for a, keys in groups.items()}
+
+
 def card_run(job: TrainJob, grads_ref: str = "", skip=(),
              gjob: Optional[TrainJob] = None) -> Dict[str, Any]:
     """``job`` through ``run_training`` on the card: per-step losses and
     clip norms, per-step fingerprints (replicated leaves; this rank's
-    tiles), digests of the final state's two parts, step ms, B1 and B2
-    launches, peak GB and the tp collectives' traffic; with
-    ``grads_ref``, step 0's gradients of ``gjob`` (default ``job``,
-    :func:`grad_job`) against one process's, leaf by leaf (replicated
-    leaves whole, each tile against its slice, :func:`leaf_readings`),
-    and the largest over the leaves not in ``skip`` (leaves ending in
-    one of its entries)."""
+    tiles), digests of the final state's two parts (and, with
+    ``grads_ref``, by the axes the leaves are split over:
+    :func:`axes_digests`), step ms, B1, B2 and B4 launches, peak GB and
+    the tp, sp and MoE collectives' traffic; with ``grads_ref``, step 0's
+    gradients of ``gjob`` (default ``job``, :func:`grad_job`) against one
+    process's, leaf by leaf (replicated leaves whole, each tile against
+    its slice, :func:`leaf_readings`), and the largest over the leaves
+    not in ``skip`` (leaves ending in one of its entries)."""
     got: Dict[str, Any] = {}
     mesh = make_mesh(job.mesh_axes)
+    got["coords"] = mesh.coords()
+    layout: Dict[str, Any] = {}
     if grads_ref:
         grads, layout = moe_check.step0(gjob or job, mesh)
         ref = torch.load(grads_ref, map_location=grads[next(iter(grads))]
@@ -460,8 +545,10 @@ def card_run(job: TrainJob, grads_ref: str = "", skip=(),
 
     dp_check.zero_counts()
     optim.multi_tensor_sgd.launches = 0
-    for k in collectives.tp_traffic:
-        collectives.tp_traffic[k] = 0
+    for traffic in (collectives.tp_traffic, collectives.moe_traffic,
+                    moe.moe_apply_fused.launches):
+        for k in traffic:
+            traffic[k] = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -475,6 +562,7 @@ def card_run(job: TrainJob, grads_ref: str = "", skip=(),
     torch.cuda.synchronize()
     marks = rec.starts + [end]
     state = out["state"]
+    hashes = leaf_digests(state)
     split = {"params/" + k for k in rec.split}
     split |= {k for k in bridge.flatten(state)
               if k.startswith("opt/") and any(k.endswith("/" + s)
@@ -485,17 +573,22 @@ def card_run(job: TrainJob, grads_ref: str = "", skip=(),
         "fingerprints": [[p.tolist() for p in ps]
                          for ps in rec.prints[1:] + [rec.prints_of(
                              state["params"])]],
-        **digests(state, split),
+        **digests(state, split, hashes),
         "split_leaves": len(rec.split),
         "step_ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
         "wall_s": time.perf_counter() - t0,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "mesh_history": out["mesh_history"],
         "tp_traffic": dict(collectives.tp_traffic),
+        "sp_traffic": dict(collectives.transfers),
+        "moe_traffic": dict(collectives.moe_traffic),
         "launches": {"fused_sgd": optim.multi_tensor_sgd.launches,
                      **{"flash_" + k: v for k, v in
-                        attention.flash_attention.launches.items()}},
+                        attention.flash_attention.launches.items()},
+                     **moe.moe_apply_fused.launches},
     })
+    if layout:
+        got["axes_digests"] = axes_digests(hashes, layout)
     return got
 
 

@@ -435,11 +435,12 @@ def test_make_mesh_matches_reference(axes, world):
 
 
 def test_make_mesh_refuses_other_axes(monkeypatch):
-    """A pipeline axis and a multislice DCN mesh still raise (ROADMAP A5);
-    tp and fsdp beside dp build, laid out as the reference's meshes."""
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_mesh({"dp": 2, "pp": 2}, world=4)
-    for axis in ("tp", "fsdp"):
+    """A multislice DCN mesh still raises (ROADMAP A5.3), as does an axis
+    of no parallelism the port knows; the pipeline's pp, tp and fsdp
+    beside dp build, laid out as the reference's meshes."""
+    with pytest.raises(NotImplementedError, match="shards over"):
+        make_mesh({"dp": 2, "xp": 2}, world=4)
+    for axis in ("tp", "fsdp", "pp"):
         got = make_mesh({"dp": 2, axis: 2}, world=4)
         assert got.shape == dict(jmesh.make_mesh(
             {"dp": 2, axis: 2}, jax.devices()[:4]).shape)
@@ -447,7 +448,7 @@ def test_make_mesh_refuses_other_axes(monkeypatch):
     monkeypatch.setenv("TPUJOB_MESH", "dp=2,tp=2")
     assert mesh_from_env(world=4).shape == {"dp": 2, "tp": 2}
     monkeypatch.setenv("TPUJOB_DCN_MESH", "dp=2")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A5.3"):
         mesh_from_env(world=4)
 
 

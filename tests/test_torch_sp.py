@@ -346,7 +346,7 @@ def test_make_mesh_takes_sp_and_refuses_the_rest(monkeypatch):
     from paddle_operator_tpu_torch.parallel.mesh import PORTED_AXES, \
         make_mesh, mesh_from_env
 
-    assert PORTED_AXES == ("dp", "sp", "ep", "tp", "fsdp")
+    assert PORTED_AXES == ("dp", "sp", "ep", "tp", "fsdp", "pp")
     mesh = make_mesh({"dp": -1, "sp": 2}, world=4)
     assert mesh.shape == {"dp": 2, "sp": 2} and mesh.size == 4
     assert mesh.axis_size("sp") == 2 and mesh.axis_size("tp") == 1
@@ -354,9 +354,9 @@ def test_make_mesh_takes_sp_and_refuses_the_rest(monkeypatch):
         is None
     assert dict(jmesh.make_mesh({"dp": -1, "sp": 2},
                                 jax.devices()[:4]).shape) == mesh.shape
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_mesh({"dp": 2, "pp": 2}, world=4)
-    for axis in ("tp", "fsdp"):
+    with pytest.raises(NotImplementedError, match="shards over"):
+        make_mesh({"dp": 2, "xp": 2}, world=4)
+    for axis in ("tp", "fsdp", "pp"):
         assert make_mesh({"dp": 2, axis: 2}, world=4).axis_size(axis) == 2
     # ep builds (expert parallelism), laid out as the reference's mesh
     ep = make_mesh({"dp": 2, "ep": 2}, world=4)

@@ -175,15 +175,15 @@ def test_state_is_a_copy_and_updates_in_place(tree):
 
 
 def test_mesh_is_refused(tree):
-    """What the port cannot shard still raises, naming ROADMAP A5: a
-    pipeline axis, a sequence axis the mesh lacks, tp with sp or ep,
+    """What the port cannot shard still raises: a pp axis in the train
+    step (it names ``pipeline_apply``), a sequence axis the mesh lacks,
     rules over an axis no tile code reads (dp) or that no layer computes
-    on (the CTR tables over tp). Rules over axes the mesh lacks mean
-    "replicated", as in the reference
-    (``tests/test_parallel.py::test_rules_survive_missing_axis``), and
-    tp and fsdp meshes build."""
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_mesh({"dp": 1, "pp": 2}, world=2)
+    on (the CTR tables over tp, ROADMAP A5). Rules over axes the mesh
+    lacks mean "replicated", as in the reference
+    (``tests/test_parallel.py::test_rules_survive_missing_axis``); tp and
+    fsdp meshes build, and so do tp beside sp and fsdp beside ep."""
+    assert make_mesh({"dp": 1, "pp": 2}, world=2).shape == {"dp": 1,
+                                                            "pp": 2}
     assert make_mesh({"dp": 1, "tp": 2}, world=2).shape == {"dp": 1,
                                                             "tp": 2}
     assert make_mesh({"dp": 1, "fsdp": 2}, world=2).shape == {"dp": 1,
@@ -197,10 +197,15 @@ def test_mesh_is_refused(tree):
     with pytest.raises(NotImplementedError, match="A5"):
         build_train_step(*args, mesh=make_mesh({"dp": 2}, world=2),
                          rules=[(r"head/fc/kernel", (None, "dp"))])
+    with pytest.raises(NotImplementedError, match="pipeline_apply"):
+        build_train_step(*args, mesh=make_mesh({"dp": 1, "pp": 2},
+                                               world=2))
     for axes in ({"tp": 2, "sp": 2}, {"fsdp": 2, "ep": 2}):
-        with pytest.raises(NotImplementedError, match="A5"):
-            build_train_step(*args, mesh=make_mesh(axes, world=4),
-                             seq_axis="sp" if "sp" in axes else None)
+        _, built = build_train_step(*args, mesh=make_mesh(axes, world=4),
+                                    seq_axis="sp" if "sp" in axes
+                                    else None)
+        assert built["params"]["head"]["fc"]["kernel"].shape == \
+            params["head"]["fc"]["kernel"].shape
     with pytest.raises(NotImplementedError, match="A5"):
         build_train_step(*args, mesh=make_mesh({"tp": 2}, world=2),
                          rules=tsharding.ctr_rules())
