@@ -15,7 +15,12 @@ path. Then it drives the fourteen ported paths:
   fp32 master params) through ``TrainJob`` + ``run_training``, 30 steps
   with ``fused_sgd`` (the multi-tensor kernel), the same 30 with ``sgd``,
   and a resume of the first run from its step-10 checkpoint; the losses
-  must agree as stated in ``phase_train``;
+  must agree as stated in ``phase_train``. The first run also carries the
+  runner's observability: its ``/metrics`` endpoint scraped while it
+  trains, a ``torch.profiler`` window of steps 11-13, the hardware block
+  (the H100's registry peak, FLOPs counted on the step) and the goodput
+  ledger, each gated and each gate proven by a planted fault (the MFU
+  gate's, a host clock, on a device-bound job of fp32 matrix products);
 * train_gpt: GPT-2 small (batch 16 x 1024 tokens, bf16 on fp32 params,
   adamw, remat, chunked LM head) through the job of
   ``examples/train_gpt.py``: step 0's gradients on the kernels against
@@ -89,8 +94,9 @@ path. Then it drives the fourteen ported paths:
   experts), each against one process, with two planted faults; gates in
   ``phase_train_hybrid``.
 
-Each phase prints one JSON line; the last two lines are the per-kernel
-summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
+Each phase prints one JSON line; ``main`` prints each phase's seconds
+with the host's CPU count and load, then the whole; the last two lines
+are the per-kernel summary and ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero without that last line. Without CUDA it exits 2. On a machine
 of four or more cards, phases train_sp, train_moe_ep, train_tp and
 train_pp run over NCCL, one card a worker (train_hybrid on eight).
@@ -103,20 +109,23 @@ import contextlib
 import dataclasses
 import functools
 import json
+import logging
 import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
 from paddle_operator_tpu_torch import bridge, dp_check, elastic_check, \
     hybrid_check, migrate_check, moe_check, pp_check, ps, ps_check, \
-    testing, tp_check
+    runner, testing, tp_check
 from paddle_operator_tpu_torch.artifacts.server import ArtifactServer
 from paddle_operator_tpu_torch.artifacts.state import pack_state_dir, \
     state_fingerprint
@@ -129,6 +138,8 @@ from paddle_operator_tpu_torch.examples import train_bert, train_deepfm, \
     train_gpt, train_wide_deep
 from paddle_operator_tpu_torch.models import bert, deepfm, gpt, resnet, \
     wide_deep
+from paddle_operator_tpu_torch.obs import StepClock, \
+    conservation_violations, lookup_chip, parse_exposition
 from paddle_operator_tpu_torch.ops import _kernels, attention, moe, optim
 from paddle_operator_tpu_torch.parallel import build_train_step, collectives
 from paddle_operator_tpu_torch.parallel.mesh import make_mesh
@@ -251,7 +262,10 @@ def phase_env() -> dict:
     env = {"phase": "env", "nvidia_smi": smi,
            "device": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(), "torch": torch.__version__,
-           "cuda": torch.version.cuda}
+           "cuda": torch.version.cuda, "host_cpus": os.cpu_count(),
+           "host_load": list(os.getloadavg())}
+    print("chip_smoke: host %d CPUs, load %.2f %.2f %.2f (1, 5, 15 min)"
+          % (env["host_cpus"], *env["host_load"]), flush=True)
     emit(env)
     return env
 
@@ -1058,6 +1072,256 @@ class _StepRecorder:
         return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
 
+#: the runner observability of phase train's run (a): its profiler window
+#: (0-based steps 10:13, the default) and the B1 launches its Chrome trace
+#: must hold, one a step; the planted fault's window of two steps, taken
+#: on run (f)
+OBS_WINDOW, OBS_WINDOW_B1, OBS_FAULT_WINDOW = "10:13", 3, "10:12"
+#: |wall - (goodput + every badput)| allowed in goodput_detail, seconds
+#: (the reference's runner test's bound)
+GOODPUT_TOL = 2e-3
+#: the hardware block's MFU over a run (each step's device time, start to
+#: end) against its wall-clock MFU (the same FLOPs at the device's
+#: forward-to-forward rate; in run (a), steps 11-30, whose gaps hold the
+#: saves, the window's trace export and the final drain): |block / wall -
+#: 1| allowed. Sound, run (a) read 0.9657-1.3848 on an H100 (1.40 with
+#: a first step slowed by the counter's start taken out), the
+#: device-bound clock check about 1 (PERF.md §6). Its planted fault, a
+#: host clock around each dispatch: in run (a) the launch queue holds the
+#: host to the card's pace and it reads within 3 % of the card's clock
+#: (no band can tell them apart there, and it moves MFU by under 3 %); on
+#: the device-bound check it reads the enqueue alone (PERF.md §6)
+MFU_BAND = 0.6
+#: the device-bound clock check: two fp32 matrix products of this width a
+#: forward, on a batch of as many rows, TF32 off, for this many steps and
+#: no saves: ~20 device ms a product, a few dozen launches a step, so the
+#: host runs steps ahead of the card between log boundaries. At 6144 a
+#: step took the card 46.4 ms and a host clock read 6.18 times the
+#: wall-clock MFU (PERF.md §6); 8192 keeps it past the band on a host
+#: 3.5 times slower
+CLOCK_WIDTH, CLOCK_STEPS = 8192, 20
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    """``os.environ`` with ``values`` set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _MetricsScraper:
+    """Scrapes a run's worker ``/metrics`` from a thread while it trains,
+    as a monitoring agent would: the endpoint's URL from the runner's log
+    line, then a GET every ``every`` seconds until closed. Each scrape
+    keeps the strict parser's errors, ``tpujob_worker_steps_total`` and
+    whether the MFU gauge is there."""
+
+    def __init__(self, every: float = 0.1) -> None:
+        self.every = every
+        self.url = None
+        self.scrapes = []
+        self._stop = threading.Event()
+        scraper = self
+
+        class Handler(logging.Handler):
+            def emit(self, record) -> None:
+                if str(record.msg).startswith("worker metrics at"):
+                    scraper.url = record.args[0]
+
+        self._handler = Handler()
+        self._log = logging.getLogger("tpujob.runner")
+        self._level = self._log.level
+        self._thread = threading.Thread(target=self._run,
+                                        name="metrics-scraper", daemon=True)
+
+    def __enter__(self) -> "_MetricsScraper":
+        self._log.setLevel(logging.INFO)
+        self._log.addHandler(self._handler)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self._log.removeHandler(self._handler)
+        self._log.setLevel(self._level)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.every):
+            if self.url is None:
+                continue
+            try:
+                with urllib.request.urlopen(self.url + "/metrics",
+                                            timeout=2) as resp:
+                    text = resp.read().decode()
+            except OSError:
+                continue
+            steps = [float(line.split()[1]) for line in text.splitlines()
+                     if line.startswith("tpujob_worker_steps_total ")]
+            self.scrapes.append({
+                "errors": parse_exposition(text),
+                "steps_total": steps[0] if steps else None,
+                "mfu_gauge": any(line.startswith("tpujob_worker_mfu ")
+                                 for line in text.splitlines())})
+
+
+def _trace_launches(trace_dir: str, name: str) -> list:
+    """Kernel events whose name holds ``name``, in each Chrome trace
+    ``profile_steps`` wrote to ``trace_dir``."""
+    counts = []
+    for fname in sorted(os.listdir(trace_dir)):
+        with open(os.path.join(trace_dir, fname)) as f:
+            events = json.load(f)["traceEvents"]
+        counts.append(sum(1 for e in events if e.get("cat") == "kernel"
+                          and name in e.get("name", "")))
+    return counts
+
+
+def _mfu_ratio(blk: dict, wall_mfu: float) -> float:
+    """The hardware block's MFU over the wall-clock MFU (0 without
+    either)."""
+    return (blk["mfu"] or 0.0) / wall_mfu if wall_mfu > 0 else 0.0
+
+
+def _mfu_problems(blk: dict, wall_mfu: float) -> list:
+    """The ``mfu`` gate: the block's MFU within MFU_BAND of the wall
+    clock's."""
+    ratio = _mfu_ratio(blk, wall_mfu)
+    if abs(ratio - 1.0) <= MFU_BAND:
+        return []
+    return [("mfu", "the block's MFU %s is %.3f of the wall-clock MFU "
+             "%.6f (band %g)" % (blk["mfu"], ratio, wall_mfu, MFU_BAND))]
+
+
+#: the badput causes each run must charge: run (a) its saves and its
+#: batch waits, the resumed run (c) its restore
+GOODPUT_CAUSES = {"run_a": ("checkpoint", "data_stall"),
+                  "resumed": ("restore",)}
+
+
+def _observability_problems(out: dict, resumed: dict, flops: float,
+                            peak: float, wall_mfu: float, window: list,
+                            scrapes: list) -> list:
+    """(gate, message) for each gate of a run's observability it fails:
+    ``peak`` (the H100's registry peak), ``conservation`` (the block's own
+    audit), ``flops`` (the block's FLOPs a step are ``flops``, the
+    profiled step's count), ``mfu`` (:func:`_mfu_problems`),
+    ``profile_window`` (the Chrome traces hold OBS_WINDOW_B1 B1
+    launches), ``goodput`` (the ledger conserves within GOODPUT_TOL, and
+    ``out`` and the resumed run ``resumed`` charge each of their
+    GOODPUT_CAUSES), ``metrics`` (two scrapes or more, each clean under
+    the strict parser, steps_total reaching the run's steps, the MFU
+    gauge).
+
+    The ledger's conservation is structural: the runner books what the
+    named causes leave of the non-productive time as ``host_other``, so
+    that part fails only by rounding. A runner that stopped charging a
+    cause would still conserve, with its seconds in ``host_other``; the
+    causes' presence is what the goodput gate can see of that."""
+    p = []
+    blk = out["hardware"]
+    if not ("H100" in blk["device_kind"]
+            and blk["peak_source"] == "registry"
+            and blk["peak_flops"] == peak):
+        p.append(("peak", "the hardware block's chip is %s, %s peak %g, "
+                  "not the H100's registry %g" % (
+                      blk["device_kind"], blk["peak_source"],
+                      blk["peak_flops"], peak)))
+    p += [("conservation", v) for v in conservation_violations(blk)]
+    if blk["flops_per_step"] != flops:
+        p.append(("flops", "the block counts %g FLOPs a step, the profiled "
+                  "step %g" % (blk["flops_per_step"], flops)))
+    p += _mfu_problems(blk, wall_mfu)
+    if window != [OBS_WINDOW_B1]:
+        p.append(("profile_window", "the window's Chrome traces hold %r B1 "
+                  "launches, expected [%d]" % (window, OBS_WINDOW_B1)))
+    for run, res in (("run_a", out), ("resumed", resumed)):
+        d = res["goodput_detail"]
+        gap = abs(d["goodput_s"] + sum(d["badput_s"].values())
+                  - d["wall_s"])
+        missing = [c for c in GOODPUT_CAUSES[run]
+                   if not d["badput_s"].get(c, 0) > 0]
+        if not gap <= GOODPUT_TOL or missing:
+            p.append(("goodput", "%s's goodput_detail leaves %.6f s "
+                      "unattributed (bound %g) or charges no %s: %r"
+                      % (run, gap, GOODPUT_TOL, missing, d)))
+    steps = [s["steps_total"] for s in scrapes
+             if s["steps_total"] is not None]
+    if len(scrapes) < 2 or any(s["errors"] for s in scrapes) or \
+            max(steps, default=0) != out["steps"] or \
+            not any(s["mfu_gauge"] for s in scrapes):
+        p.append(("metrics", "%d scrapes, errors %r, steps_total up to %s, "
+                  "MFU gauge %s" % (
+                      len(scrapes), [s["errors"] for s in scrapes
+                                     if s["errors"]][:2],
+                      max(steps, default=None),
+                      any(s["mfu_gauge"] for s in scrapes))))
+    return p
+
+
+class _HostStepClock(StepClock):
+    """The planted fault of the ``mfu`` gate: the host's clock around each
+    dispatch on a CUDA device, as if the runner banked the seconds the
+    call took to return; a launch returns before the card has run it."""
+
+    def __init__(self, plane, device) -> None:
+        super().__init__(plane, "cpu")
+
+
+def _matmul_loss(params, batch):
+    """Two fp32 matrix products and a mean square."""
+    return ((batch @ params["w1"]) @ params["w2"]).square().mean(), {}
+
+
+def _clock_run(host_clock: bool, peak: float) -> dict:
+    """CLOCK_STEPS steps of two CLOCK_WIDTH-wide fp32 layers through
+    run_training, TF32 off, no saves: the hardware block, and the
+    wall-clock MFU of steps 2 to the end (the device's clock from step
+    2's forward to an event after run_training returned). With
+    ``host_clock`` the runner times its steps with _HostStepClock."""
+    w = CLOCK_WIDTH
+
+    def init_params(gen):
+        return {k: torch.randn(w, w, generator=gen, device=DEVICE)
+                * w ** -0.5 for k in ("w1", "w2")}
+
+    rec = _StepRecorder(loss=_matmul_loss)
+    job = TrainJob(
+        init_params=init_params, loss_fn=rec.loss_fn,
+        optimizer=optim.sgd(1e-3),
+        make_batch=lambda gen, step: torch.randn(w, w, generator=gen,
+                                                 device=DEVICE),
+        total_steps=CLOCK_STEPS, log_every=10, device=DEVICE)
+    matmul = torch.backends.cuda.matmul
+    saved = (matmul.allow_tf32, runner.StepClock)
+    matmul.allow_tf32 = False
+    if host_clock:
+        runner.StepClock = _HostStepClock
+    try:
+        out = run_training(job)
+        rec.end = _event()
+        rec.end.record()
+        torch.cuda.synchronize()
+    finally:
+        matmul.allow_tf32, runner.StepClock = saved
+    blk = out["hardware"]
+    span_s = rec.starts[1].elapsed_time(rec.end) / 1e3
+    wall_mfu = blk["flops_per_step"] * (CLOCK_STEPS - 1) / span_s / peak
+    return {"hardware": blk, "wall_clock_mfu_steps_2_on": wall_mfu,
+            "block_mfu_over_wall": _mfu_ratio(blk, wall_mfu),
+            "device_ms_per_step": 1e3 * span_s / (CLOCK_STEPS - 1),
+            "gates_failed": sorted({g for g, _ in _mfu_problems(blk,
+                                                               wall_mfu)})}
+
+
 def _train_run(opt, total: int, ckpt_dir: str, make_batch=None,
                **job_kw):
     rec = _StepRecorder()
@@ -1115,19 +1379,36 @@ def phase_train(smi: str) -> dict:
     (a) 30 steps with fused_sgd, checkpoints every 10 steps;
     (b) the same 30 steps with sgd;
     (c) (a) resumed from its step-10 checkpoint through restore_latest;
-    then 20 steps on one fixed batch, and a profiled window."""
+    then 20 steps on one fixed batch, and a profiled window.
+
+    Run (a) also carries the runner's observability (``metrics_port=0``,
+    ``TPUJOB_PROFILE_DIR`` with the window OBS_WINDOW): its ``/metrics``
+    scraped from a thread while it trains, and the gates of
+    :func:`_observability_problems` on its result (and on the resumed
+    run's ledger); the fixed-batch run takes the planted window
+    OBS_FAULT_WINDOW, and a tampered block and ledgers whose checkpoint,
+    data_stall or restore seconds went to host_other are the other
+    planted faults. The ``mfu`` gate is proven on the device-bound
+    :func:`_clock_run`, sound and under the planted _HostStepClock (in run
+    (a) a host clock reads within a few % of the card's). Each fault must
+    fail its gate."""
     cudnn = torch.backends.cudnn
     saved = (cudnn.deterministic, cudnn.benchmark)
     cudnn.deterministic, cudnn.benchmark = True, False
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         dirs = {k: os.path.join(tmp, k) for k in "abc"}
+        prof_dirs = {k: os.path.join(tmp, "profile_" + k) for k in "af"}
         optim.multi_tensor_sgd.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        rec_a, out_a, wall_a = _train_run(
-            resnet_optimizer("fused_sgd", 30), 30, dirs["a"])
+        with _environ(TPUJOB_PROFILE_DIR=prof_dirs["a"],
+                      TPUJOB_PROFILE_STEPS=OBS_WINDOW), \
+                _MetricsScraper() as scraper:
+            rec_a, out_a, wall_a = _train_run(
+                resnet_optimizer("fused_sgd", 30), 30, dirs["a"],
+                metrics_port=0)
         launches_a = optim.multi_tensor_sgd.launches
-        peak = torch.cuda.max_memory_allocated()
+        peak_mem = torch.cuda.max_memory_allocated()
         optim.multi_tensor_sgd.launches = 0
         rec_b, out_b, wall_b = _train_run(resnet_optimizer("sgd", 30), 30,
                                           dirs["b"])
@@ -1142,8 +1423,12 @@ def phase_train(smi: str) -> dict:
         fixed = resnet.synthetic_batch(
             torch.Generator(device=DEVICE).manual_seed(1), BATCH, IMAGE,
             CLASSES)
-        rec_f, _, _ = _train_run(resnet_optimizer("fused_sgd", 20), 20, "",
-                                 make_batch=lambda gen, step: fixed)
+        with _environ(TPUJOB_PROFILE_DIR=prof_dirs["f"],
+                      TPUJOB_PROFILE_STEPS=OBS_FAULT_WINDOW):
+            rec_f, _, _ = _train_run(resnet_optimizer("fused_sgd", 20), 20,
+                                     "", make_batch=lambda gen, step: fixed)
+        window = {k: _trace_launches(d, "fused_sgd_kernel")
+                  for k, d in prof_dirs.items()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         cudnn.deterministic, cudnn.benchmark = saved
@@ -1166,7 +1451,50 @@ def phase_train(smi: str) -> dict:
 
     times = {"fused_sgd": timing(rec_a), "sgd": timing(rec_b)}
     profile_out = _train_profile()
+    peak = lookup_chip(torch.cuda.get_device_name(0))[0]
+    clock = {"sound": _clock_run(False, peak),
+             "host_clock": _clock_run(True, peak)}
     step_s = times["fused_sgd"]["step_ms_median"] / 1e3
+    # the runner's observability of run (a), held to its gates, and each
+    # gate against its planted fault
+    blk = out_a["hardware"]
+    wall_mfu = (profile_out["flops_per_step"]
+                * times["fused_sgd"]["images_per_s"] / BATCH / peak)
+    sound = dict(out=out_a, resumed=out_c,
+                 flops=profile_out["flops_per_step"], peak=peak,
+                 wall_mfu=wall_mfu, window=window["a"],
+                 scrapes=scraper.scrapes)
+    detail = out_a["goodput_detail"]
+    # run (a) under the host clock: the same span the runner's
+    # step_dispatch stage times, around the same call
+    host_s = out_a["host_stages"]["step_dispatch"]["ms"] / 1e3
+    host_clock_ratio_a = blk["total_flops"] / host_s / peak / wall_mfu
+
+    def uncharged(res: dict, cause: str) -> dict:
+        """``res`` from a runner that stopped charging ``cause``: its
+        seconds land in host_other, and the ledger still conserves."""
+        d = res["goodput_detail"]
+        badput = dict(d["badput_s"])
+        moved = badput.pop(cause)
+        badput["host_other"] = badput.get("host_other", 0.0) + moved
+        return dict(res, goodput_detail=dict(d, badput_s=badput))
+
+    planted = {
+        # one step too many in the total: the lowest miscount
+        "tampered_total_flops": ("conservation", dict(sound, out=dict(
+            out_a, hardware=dict(blk, total_flops=blk["flops_per_step"]
+                                 * (blk["steps"] + 1))))),
+        "window_10_12": ("profile_window", dict(sound, window=window["f"])),
+        "uncharged_checkpoint": ("goodput", dict(
+            sound, out=uncharged(out_a, "checkpoint"))),
+        "uncharged_data_stall": ("goodput", dict(
+            sound, out=uncharged(out_a, "data_stall"))),
+        "uncharged_restore": ("goodput", dict(
+            sound, resumed=uncharged(out_c, "restore"))),
+    }
+    obs_problems = _observability_problems(**sound)
+    obs_faults = {name: sorted({g for g, _ in _observability_problems(**kw)})
+                  for name, (gate, kw) in planted.items()}
     # the profiled window is one fixed batch without the loader or the
     # writer, and the profiler slows the host; the idle share of run (a) is
     # read from its un-profiled median step against the profiled busy time
@@ -1187,16 +1515,67 @@ def phase_train(smi: str) -> dict:
         "resume_steps": out_c.get("resume_steps"),
         "timing_steps_11_30": times,
         "wall_s": {"fused_sgd": wall_a, "sgd": wall_b},
-        "max_memory_allocated": peak,
+        "max_memory_allocated": peak_mem,
         "host_stages_fused_sgd": out_a["host_stages"],
         "profile": profile_out,
         "idle_share_unprofiled_fused_sgd": 1.0 - busy_ms / (1e3 * step_s),
         "flops_per_s": profile_out["flops_per_step"] / step_s,
         "bf16_peak_share": profile_out["flops_per_step"] / step_s
         / BF16_FLOPS,
+        "observability_fused_sgd": {
+            "hardware": blk, "goodput": out_a["goodput"],
+            "goodput_detail": detail,
+            "step_profile": out_a["step_profile"],
+            "straggler_events": out_a["straggler_events"],
+            "backend_degraded_events": out_a["backend_degraded_events"],
+            "wall_clock_mfu_steps_11_30": wall_mfu,
+            "block_mfu_over_wall": _mfu_ratio(blk, wall_mfu),
+            "host_clock_mfu_over_wall": host_clock_ratio_a,
+            "host_dispatch_s": host_s,
+            "mfu_band": MFU_BAND,
+            "clock_check": clock,
+            "resumed_goodput_detail": out_c["goodput_detail"],
+            "profile_window": {"steps": OBS_WINDOW, "b1_launches":
+                               window["a"]},
+            "metrics_scrapes": len(scraper.scrapes),
+            "metrics_steps_total": [s["steps_total"]
+                                    for s in scraper.scrapes],
+            "gates_failed": sorted({g for g, _ in obs_problems}),
+            "planted_faults": dict(
+                {name: {"gate": gate, "gates_failed": obs_faults[name]}
+                 for name, (gate, _) in planted.items()},
+                host_clock={"gate": "mfu", "gates_failed":
+                            clock["host_clock"]["gates_failed"]}),
+            "fault_window": {"steps": OBS_FAULT_WINDOW,
+                             "b1_launches": window["f"]}},
     }
     emit(out)
-    problems = []
+    print("train observability (%s): hardware block MFU %s over %d steps "
+          "(%s, peak %g, %s FLOPs a step), wall-clock MFU of steps 11-30 "
+          "%.6f, ratio %.4f (a host clock's %.4f); goodput %s, badput %s; "
+          "resumed badput %s; %d /metrics scrapes; window B1 %r, planted "
+          "window %r; clock check (%.3f device ms a step): ratio %.4f, "
+          "host clock's %.4f" % (
+              smi, blk["mfu"], blk["steps"], blk["device_kind"],
+              blk["peak_flops"], blk["flops_per_step"], wall_mfu,
+              _mfu_ratio(blk, wall_mfu), host_clock_ratio_a,
+              out_a["goodput"], detail["badput_s"],
+              out_c["goodput_detail"]["badput_s"], len(scraper.scrapes),
+              window["a"], window["f"],
+              clock["sound"]["device_ms_per_step"],
+              clock["sound"]["block_mfu_over_wall"],
+              clock["host_clock"]["block_mfu_over_wall"]), flush=True)
+    problems = [msg for _, msg in obs_problems]
+    for name, (gate, _) in planted.items():
+        if gate not in obs_faults[name]:
+            problems.append("the %s gate missed the planted fault %s"
+                            % (gate, name))
+    problems += ["clock check: %s" % msg for _, msg in _mfu_problems(
+        clock["sound"]["hardware"], clock["sound"]["wall_clock_mfu_steps_2_on"])]
+    if "mfu" not in clock["host_clock"]["gates_failed"]:
+        problems.append("the mfu gate missed the planted fault host_clock "
+                        "(ratio %.4f)"
+                        % clock["host_clock"]["block_mfu_over_wall"])
     if la[0] != lb[0]:
         problems.append("first losses differ: %r vs %r" % (la[0], lb[0]))
     if not out["max_abs_loss_diff_fused_vs_sgd"] <= TRAIN_TOL:
@@ -1311,9 +1690,11 @@ def _gpt_run(attn_impl: str, ckpt_dir: str, make_batch=None):
 
 
 def _attention_flops(cfg: dict) -> int:
-    """Model FLOPs of causal attention per step, by hand (FlopCounterMode
-    does not see the kernels): per layer, the forward's two products of
-    2*D flops per live (q, k) pair, times 3 for the backward."""
+    """Model FLOPs of causal attention per step, by hand: per layer, the
+    forward's two products of 2*D flops per live (q, k) pair, times 3 for
+    the backward. FlopCounterMode sees the kernels only through the flash
+    operators' FLOP reports; this count, independent of them, is what the
+    phase holds them to."""
     d = cfg["hidden"] // cfg["heads"]
     pairs = GPT_SEQ * (GPT_SEQ + 1) // 2
     return 3 * cfg["layers"] * 2 * 2 * d * GPT_BATCH * cfg["heads"] * pairs
@@ -1370,6 +1751,28 @@ def _gpt_grad_check() -> dict:
                        variants)["einsum"]
 
 
+#: |the counter's FLOPs with the flash operators reporting - (its count
+#: without them + the hand count of attention)| / the latter allowed on
+#: phase train_gpt's forward and backward
+FLOP_RTOL = 0.01
+
+
+@contextlib.contextmanager
+def _flash_flops_unreported():
+    """The planted fault of the FLOP gate: FlopCounterMode made while open
+    does not know the flash operators' formulas, so it counts no attention
+    (as before the operators reported)."""
+    from torch.utils.flop_counter import flop_registry
+
+    ops = [getattr(torch.ops.paddle_tpu_torch, "flash_" + k)
+           for k in ("fwd", "dq", "dkv")]
+    saved = {op: flop_registry.pop(op) for op in ops}
+    try:
+        yield
+    finally:
+        flop_registry.update(saved)
+
+
 #: device-time names of the flash kernels, matched by substring: each
 #: covers both designs (``flash_fwd_kernel<float, D>`` on fp32 and
 #: ``flash_fwd_mma_kernel<D>`` on bf16; likewise dq and dkv)
@@ -1409,9 +1812,11 @@ def _step_profile(job, params, batch, names=(), warm: int = 2,
 def _gpt_profile(env=None, names=FLASH_PROFILE_NAMES) -> dict:
     """:func:`_step_profile` of the example's job (from ``env``, default
     ``_gpt_env()``), and the model FLOPs from FlopCounterMode over one
-    forward and backward without recompute (remat off, dense head); the
-    attention FLOPs, which it does not see in the kernels, are added by
-    hand by the caller."""
+    forward and backward without recompute (remat off, dense head), twice:
+    with the flash operators reporting their FLOPs
+    (``counted_flops_per_step``) and without (the planted fault,
+    ``unreported_flops_per_step``, to which the caller adds attention by
+    hand)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     job = train_gpt.make_job(env or _gpt_env())
@@ -1421,13 +1826,18 @@ def _gpt_profile(env=None, names=FLASH_PROFILE_NAMES) -> dict:
     leaves = bridge.flatten(params)
     for t in leaves.values():
         t.requires_grad_()
-    with FlopCounterMode(display=False) as counter:
-        loss, _ = gpt.loss_fn(params, batch, remat=False, attn_impl="auto",
-                              ce_chunk=0)
-        torch.autograd.grad(loss, list(leaves.values()))
-    del loss, leaves
+    counts = {}
+    for key, context in (("counted", contextlib.nullcontext),
+                         ("unreported", _flash_flops_unreported)):
+        with context(), FlopCounterMode(display=False) as counter:
+            loss, _ = gpt.loss_fn(params, batch, remat=False,
+                                  attn_impl="auto", ce_chunk=0)
+            torch.autograd.grad(loss, list(leaves.values()))
+        counts[key + "_flops_per_step"] = counter.get_total_flops()
+        del loss
+    del leaves
     out = _step_profile(job, params, batch, names)
-    out["counted_flops_per_step"] = counter.get_total_flops()
+    out.update(counts)
     return out
 
 
@@ -1511,7 +1921,16 @@ def phase_train_gpt(smi: str) -> dict:
     median_s = statistics.median(step_ms) / 1e3
     busy_ms = profile_out["device_busy_ms_per_step"]
     flash_ms = profile_out["kernel_ms_per_step"]
-    model_flops = profile_out["counted_flops_per_step"] + _attention_flops(cfg)
+    # the model FLOPs as PRs 3-16 counted them (attention by hand), and
+    # the counter's own count with the flash operators reporting, which
+    # must agree with it; the planted fault leaves the report out
+    model_flops = profile_out["unreported_flops_per_step"] + \
+        _attention_flops(cfg)
+    flop_rel = abs(profile_out["counted_flops_per_step"] - model_flops) \
+        / model_flops
+    flop_fault_rel = abs(profile_out["unreported_flops_per_step"]
+                         - model_flops) / model_flops
+    blk = out_a["hardware"]
     expected = {"fwd": 2 * cfg["layers"] * GPT_STEPS,
                 "dq": cfg["layers"] * GPT_STEPS,
                 "dkv": cfg["layers"] * GPT_STEPS}
@@ -1556,9 +1975,39 @@ def phase_train_gpt(smi: str) -> dict:
         "model_flops_per_step": model_flops,
         "attention_flops_per_step": _attention_flops(cfg),
         "mfu_bf16": model_flops / median_s / BF16_FLOPS,
+        "counted_flops_per_step": profile_out["counted_flops_per_step"],
+        "flop_rel_diff_vs_hand": flop_rel,
+        "flop_rtol": FLOP_RTOL,
+        "planted_flash_flops_unreported_rel_diff": flop_fault_rel,
+        "hardware_flash": blk,
+        "goodput_detail_flash": out_a["goodput_detail"],
+        "step_profile_flash": out_a["step_profile"],
+        # the block counts the step as it ran: under remat the forward
+        # runs twice, so its FLOPs a step exceed the model count
+        "block_flops_over_model_flops": blk["flops_per_step"] / model_flops,
     }
     emit(out)
+    print("train_gpt FLOPs (%s): counter with the flash operators %g, "
+          "without %g + attention by hand %g = %g (off by %.2e, gate %g; "
+          "left out: %.2e); hardware block MFU %s at %g FLOPs a step "
+          "(remat's recompute: %.4f of the model count) against the "
+          "phase's MFU %.6f" % (
+              smi, profile_out["counted_flops_per_step"],
+              profile_out["unreported_flops_per_step"],
+              _attention_flops(cfg), model_flops, flop_rel, FLOP_RTOL,
+              flop_fault_rel, blk["mfu"], blk["flops_per_step"],
+              blk["flops_per_step"] / model_flops, out["mfu_bf16"]),
+          flush=True)
     problems = []
+    if not flop_rel <= FLOP_RTOL:
+        problems.append("the counter's FLOPs with the flash operators part "
+                        "from the hand count by %g > %g"
+                        % (flop_rel, FLOP_RTOL))
+    if not flop_fault_rel > FLOP_RTOL:
+        problems.append("the FLOP gate passes the planted fault "
+                        "flash_flops_unreported (%g)" % flop_fault_rel)
+    for v in conservation_violations(blk):
+        problems.append("train_gpt hardware block: " + v)
     if out["max_rel_loss_diff_flash_vs_einsum"] > GPT_EINSUM_RTOL:
         problems.append("flash and einsum losses part by %g relative > %g"
                         % (out["max_rel_loss_diff_flash_vs_einsum"],
@@ -2139,7 +2588,8 @@ def phase_train_gpt_moe(smi: str) -> dict:
     median_s = statistics.median(fused_ms) / 1e3
     busy_ms = profile_out["device_busy_ms_per_step"]
     kernel_ms = profile_out["kernel_ms_per_step"]
-    model_flops = profile_out["counted_flops_per_step"] + _attention_flops(cfg)
+    model_flops = profile_out["unreported_flops_per_step"] + \
+        _attention_flops(cfg)
     expected = {k: n * MOE_STEPS for k, n in per_step.items()}
     out = {
         "phase": "train_gpt_moe", "card": smi,
@@ -2521,6 +2971,36 @@ def _nccl_profile(mesh, warm: int = 2, steps: int = 5) -> dict:
             "allreduce_share_of_busy": nccl_us / busy if busy else None}
 
 
+def _nccl_window_child() -> dict:
+    """:func:`_nccl_profile` at world 1 over NCCL, in the process it runs
+    in, with the settings ``main`` and phase train_dp give the card."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group(
+        "nccl", init_method="tcp://localhost:%d" % dp_check.free_port(),
+        world_size=1, rank=0)
+    try:
+        return _nccl_profile(make_mesh({"dp": 1}))
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_window() -> dict:
+    """:func:`_nccl_profile` in a fresh process (spawned, stopped before
+    this returns). A process that has run long or profiled often loses a
+    kernel record of a window's first step now and then (560 host
+    records, 559 kernels); a fresh one lost none in its first 16 windows
+    (PERF.md §6; ``scripts/nccl_window_loss.py``)."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_nccl_window_child)
+
+
 def _dp_workers(out: str) -> dict:
     """Two workers through ``python -m paddle_operator_tpu_torch.launch``
     on this one card, over gloo: ResNet-50 sound and with rank 1 keeping
@@ -2620,7 +3100,8 @@ def phase_train_dp(smi: str, train_losses: list) -> dict:
         ResNet-50 as phase_train's ``fused_sgd`` run (224x224, batch 128,
         30 steps), whose losses must equal that run's bit for bit (the
         world-1 means scale by 1.0, and NCCL's one-rank kernel is a copy
-        times 1); a profile counts the NCCL kernels a step against
+        times 1); a profile, taken in a fresh process
+        (:func:`_nccl_window`), counts the NCCL kernels a step against
         :func:`_dp_collectives_per_step`; B1 launches 30 times;
     (b) two workers on this card (gloo; NCCL refuses two ranks on one
         device: its words are printed), started as the operator starts
@@ -2655,9 +3136,9 @@ def phase_train_dp(smi: str, train_losses: list) -> dict:
                 resnet_optimizer("fused_sgd", 30), 30, "",
                 mesh_axes={"dp": 1})
             launches_a = optim.multi_tensor_sgd.launches
-            nccl = _nccl_profile(make_mesh({"dp": 1}))
         finally:
             dist.destroy_process_group()
+        nccl = _nccl_window()
         one = {"resnet50": dp_check.card_run("resnet50", DP_RESNET_STEPS),
                "gpt": dp_check.card_run("gpt2_2layers", DP_GPT_STEPS)}
         workers = _dp_workers(os.path.join(tmp, "workers"))
@@ -3850,7 +4331,9 @@ def phase_train_moe_ep(smi: str, one_12layers: list = None) -> dict:
     bitwise on their dp replicas), equal clip norms, step-0 gradients,
     the first MoE layer's routing against one process's, B4 and B2
     launches of a rank a step (``moe_launches_per_step``), the 16-byte
-    path. Printed: step ms a rank, the MoE collectives' share of it
+    path; and on (a), the runner's straggler check over the world: each
+    rank reports its step profile, a gang view of the four ranks and no
+    straggler event. Printed: step ms a rank, the MoE collectives' share of it
     (host seconds), B4 launches a rank a step, peak GB a rank and the
     phase's seconds. On gloo the workers share one card: a correctness
     run, not a rate."""
@@ -3893,6 +4376,18 @@ def phase_train_moe_ep(smi: str, one_12layers: list = None) -> dict:
             name, rs, one[moe_check.ONE_PROCESS[run]][:len(rs[0]["losses"])],
             per_step, experts)
         step_s = [sum(r["step_ms"][1:]) / 1e3 for r in rs]
+        if name == "dp4":
+            for r in rs:
+                if not ("dispatch" in r["step_profile"]
+                        and len(r["gang_p50"]) == MOE_EP_WORKERS
+                        and r["straggler_events"] == 0):
+                    gates[name].append((
+                        "straggler", "rank %d: step profile %s, gang %r, "
+                        "%d straggler events; expected a dispatch phase, "
+                        "%d ranks and none" % (
+                            r["rank"], sorted(r["step_profile"]),
+                            r["gang_p50"], r["straggler_events"],
+                            MOE_EP_WORKERS)))
         summary[name] = {
             "losses": global_losses(rs),
             "max_rel_loss_diff_vs_one_process": max(rel_diffs(
@@ -3915,6 +4410,12 @@ def phase_train_moe_ep(smi: str, one_12layers: list = None) -> dict:
             "peak_gb": [r["peak_gb"] for r in rs],
             "mesh_history": [r["mesh_history"] for r in rs],
             "wall_s": [r["wall_s"] for r in rs],
+            "gang_p50": [r["gang_p50"] for r in rs],
+            "straggler_events": [r["straggler_events"] for r in rs],
+            "dispatch_p50_s": [r["step_profile"].get("dispatch", {})
+                               .get("p50") for r in rs],
+            "collective_p50_s": [r["step_profile"].get("collective", {})
+                                 .get("p50") for r in rs],
             "gates_failed": sorted({g for g, _ in gates[name]})}
     a, b = global_losses(runs["dp4"]), global_losses(runs["dp2_ep2"])
     a_vs_b = max(rel_diffs(b, a))
@@ -3944,6 +4445,12 @@ def phase_train_moe_ep(smi: str, one_12layers: list = None) -> dict:
                   r["max_rel_loss_diff_vs_one_process"]), flush=True)
     print("train_moe_ep (%s): dp2 x ep2 against dp4 %.3g; phase %.1f s"
           % (smi, a_vs_b, out["seconds"]), flush=True)
+    dp4 = summary["dp4"]
+    print("train_moe_ep dp4 straggler check (%s): gang views %s; dispatch "
+          "p50 s %s, collective p50 s %s; straggler events %s" % (
+              smi, dp4["gang_p50"], dp4["dispatch_p50_s"],
+              dp4["collective_p50_s"], dp4["straggler_events"]),
+          flush=True)
     problems = []
     for name, p in gates.items():
         fault = runs[name][0]["fault"]
@@ -4965,28 +5472,41 @@ def main() -> int:
     print("chip_smoke: TF32 off for matmul and cuDNN (fp32 throughout)",
           flush=True)
     t0 = time.perf_counter()
-    env = phase_env()
-    phase_build()
-    kernels = phase_kernels(hbm_rate(env["device"]))
-    serve = phase_serve(env["nvidia_smi"])
-    train = phase_train(env["nvidia_smi"])
-    train_gpt_out = phase_train_gpt(env["nvidia_smi"])
-    moe_out = phase_train_gpt_moe(env["nvidia_smi"])
-    bert_out = phase_train_bert(env["nvidia_smi"])
-    dp_out = phase_train_dp(env["nvidia_smi"],
-                            train["losses"]["fused_sgd"])
-    sp_out = phase_train_sp(env["nvidia_smi"])
-    ctr_out = phase_train_ctr(env["nvidia_smi"])
-    elastic_out = phase_train_elastic(env["nvidia_smi"])
-    moe_ep_out = phase_train_moe_ep(
-        env["nvidia_smi"], moe_out["losses"]["kernels"][:MOE_EP_STEPS])
-    migrate_out = phase_train_migrate(env["nvidia_smi"],
-                                      train["losses"]["fused_sgd"])
-    tp_out = phase_train_tp(env["nvidia_smi"],
-                            train_gpt_out["losses"]["flash"],
-                            train["losses"]["fused_sgd"])
-    pp_out = phase_train_pp(env["nvidia_smi"])
-    hybrid_out = phase_train_hybrid(env["nvidia_smi"])
+    seconds = {}
+
+    def phase(name, fn, *args):
+        """Run a phase; print its seconds beside the host's load."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print("chip_smoke: phase %s took %.1f s (host %d CPUs, load %.2f "
+              "%.2f %.2f)" % (name, seconds[name], os.cpu_count(),
+                              *os.getloadavg()), flush=True)
+        return out
+
+    env = phase("env", phase_env)
+    smi = env["nvidia_smi"]
+    phase("build", phase_build)
+    kernels = phase("kernels", phase_kernels, hbm_rate(env["device"]))
+    serve = phase("serve", phase_serve, smi)
+    train = phase("train", phase_train, smi)
+    train_gpt_out = phase("train_gpt", phase_train_gpt, smi)
+    moe_out = phase("train_gpt_moe", phase_train_gpt_moe, smi)
+    bert_out = phase("train_bert", phase_train_bert, smi)
+    dp_out = phase("train_dp", phase_train_dp, smi,
+                   train["losses"]["fused_sgd"])
+    sp_out = phase("train_sp", phase_train_sp, smi)
+    ctr_out = phase("train_ctr", phase_train_ctr, smi)
+    elastic_out = phase("train_elastic", phase_train_elastic, smi)
+    moe_ep_out = phase("train_moe_ep", phase_train_moe_ep, smi,
+                       moe_out["losses"]["kernels"][:MOE_EP_STEPS])
+    migrate_out = phase("train_migrate", phase_train_migrate, smi,
+                        train["losses"]["fused_sgd"])
+    tp_out = phase("train_tp", phase_train_tp, smi,
+                   train_gpt_out["losses"]["flash"],
+                   train["losses"]["fused_sgd"])
+    pp_out = phase("train_pp", phase_train_pp, smi)
+    hybrid_out = phase("train_hybrid", phase_train_hybrid, smi)
     # the MoE-ep path's launches, summed over the ranks of its sound runs
     moe_ep_launches = {
         k: sum(n[k] for name in MOE_EP_SOUND
@@ -5053,7 +5573,13 @@ def main() -> int:
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
-    emit({"phase": "summary", "seconds": time.perf_counter() - t0,
+    whole = time.perf_counter() - t0
+    print("chip_smoke: phases (s) %s; the whole %.1f s (host %d CPUs, load "
+          "%.2f %.2f %.2f)" % (
+              ", ".join("%s %.1f" % kv for kv in seconds.items()), whole,
+              os.cpu_count(), *os.getloadavg()), flush=True)
+    emit({"phase": "summary", "seconds": whole, "phase_seconds": seconds,
+          "host_cpus": os.cpu_count(), "host_load": list(os.getloadavg()),
           "bert_moe_launches": bert_out["bert_base_moe"]["launches"],
           "dp_launches_per_rank": {
               "fused_sgd": dp_out["two_workers_resnet50"]["launches"],

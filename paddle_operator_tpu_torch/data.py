@@ -3,7 +3,8 @@ port of ``paddle_operator_tpu/data.py``.
 
 * :class:`ShardedLoader` runs a producer thread that pulls batches from a
   source and stages them on the device into a bounded queue, so batch
-  construction and the host-to-device copy for step N+1 overlap step N.
+  construction and the host-to-device copy for step N+1 overlap step N
+  (``prefetch=0``: inline, no thread).
   Where the JAX package issued ``jax.device_put``, the port copies host
   tensors through pinned buffers with ``non_blocking`` copies on a side
   CUDA stream and records an event; the consumer's stream waits on that
@@ -151,7 +152,8 @@ def _producer_main(loader_ref) -> None:
         del loader
 
 
-#: batches or windows the producer keeps ready ahead of the consumer
+#: batches or windows the producer keeps ready ahead of the consumer, by
+#: default
 PREFETCH = 2
 
 
@@ -167,9 +169,12 @@ class _Staged:
 class ShardedLoader:
     """Background producer: pulls, places on ``device``, prefetches.
 
-    A thread pulls from the source, places each batch and feeds a bounded
-    queue :data:`PREFETCH` deep, the runner's depth; a full queue
-    backpressures the producer. Source exceptions re-raise on the consumer at ``next()``.
+    ``prefetch > 0`` (default :data:`PREFETCH`, the runner's depth): a
+    thread pulls from the source, places each batch and feeds a bounded
+    queue that deep; a full queue backpressures the producer. Source
+    exceptions re-raise on the consumer at ``next()``. ``prefetch=0``:
+    inline, ``next()`` pulls and places on the caller's thread, and no
+    thread is started.
 
     Placement on a CUDA ``device``: numpy and CPU tensor leaves are copied
     into pinned host memory and sent with ``non_blocking`` copies on a
@@ -181,22 +186,26 @@ class ShardedLoader:
     """
 
     def __init__(self, source: Iterator[Any], device: DeviceLike = None,
-                 timings: Optional[StageTimes] = None) -> None:
+                 timings: Optional[StageTimes] = None,
+                 prefetch: int = PREFETCH) -> None:
         self._source = source
         self._device = resolve_device(device, "ShardedLoader")
         self._timings = timings
+        self._prefetch = max(0, int(prefetch))
         self._stream = (torch.cuda.Stream(self._device)
                         if self._device.type == "cuda" else None)
         self._exhausted = False
-        self._queue: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
-        self._stop = threading.Event()
-        self._staged = None   # item built but not yet enqueued
-        self._final = False   # staged item is the end/error sentinel
-        self._enqueue_blocked = 0.0
-        self._thread: Optional[threading.Thread] = threading.Thread(
-            target=_producer_main, args=(weakref.ref(self),),
-            name="sharded-loader", daemon=True)
-        self._thread.start()
+        self._thread: Optional[threading.Thread] = None
+        if self._prefetch:
+            self._queue: "queue.Queue" = queue.Queue(maxsize=self._prefetch)
+            self._stop = threading.Event()
+            self._staged = None   # item built but not yet enqueued
+            self._final = False   # staged item is the end/error sentinel
+            self._enqueue_blocked = 0.0
+            self._thread = threading.Thread(
+                target=_producer_main, args=(weakref.ref(self),),
+                name="sharded-loader", daemon=True)
+            self._thread.start()
 
     def _timed(self, stage: str):
         if self._timings is None:
@@ -284,6 +293,13 @@ class ShardedLoader:
     def __next__(self) -> Any:
         if self._exhausted:
             raise StopIteration
+        if not self._prefetch:
+            try:
+                nxt = self._pull()
+            except StopIteration:
+                self._exhausted = True
+                raise
+            return self._hand_over(self._place(nxt))
         with self._timed("dequeue_wait"):
             while True:
                 try:
@@ -302,6 +318,12 @@ class ShardedLoader:
         raise StopIteration
 
     # ---- lifecycle --------------------------------------------------------
+
+    def queue_depth(self) -> int:
+        """Batches or windows staged ahead of the consumer (0 inline).
+        Approximate (the producer may be mid-put): a gauge, not a
+        synchronisation."""
+        return self._queue.qsize() if self._prefetch else 0
 
     def producer_alive(self) -> bool:
         return self._thread is not None and self._thread.is_alive()

@@ -42,7 +42,10 @@ Scenarios (``kind``):
   against one process's saved ones;
 * ``mesh``: a dp x sp mesh's coordinates and axis groups;
 * ``nccl_pair``: an NCCL group over the ranks, to record what NCCL says;
-* ``world``: the rank, size and backend, and a sum over the ranks.
+* ``world``: the rank, size and backend, and a sum over the ranks;
+* ``straggle``: ``run_training`` of a tiny GPT on the CPU with one
+  rank (``slow_rank``, or none) sleeping ``sleep`` seconds in its loss:
+  the rank's straggler events, gang view and step profile.
 
 A scenario may plant a fault (:func:`planted`) that a gate must reject.
 """
@@ -728,6 +731,32 @@ def _mesh(sc: dict, rank: int, size: int) -> Dict[str, Any]:
     return out
 
 
+def _straggle(sc: dict, rank: int, size: int) -> Dict[str, Any]:
+    """A tiny GPT through ``run_training`` on the CPU, every
+    ``log_every`` steps a straggler check over the world; rank
+    ``slow_rank`` sleeps ``sleep`` seconds at the start of each loss, so
+    its peers wait for it inside the step's collectives. One intra-op
+    thread a rank, so that ranks sharing the host's cores run alike."""
+    torch.set_num_threads(1)
+
+    def loss_fn(params, batch):
+        if rank == sc["slow_rank"]:
+            time.sleep(sc["sleep"])
+        return gpt.loss_fn(params, batch, dtype=torch.float32)
+
+    out = run_training(TrainJob(
+        init_params=lambda gen: gpt.init(gen, gpt.TINY_CONFIG),
+        loss_fn=loss_fn, optimizer=optim.adamw(1e-3),
+        make_batch=lambda gen, step: gpt.synthetic_batch(
+            gen, 2 * size, 16, 1024),
+        total_steps=sc["steps"], log_every=sc["log_every"], device="cpu"))
+    return {"straggler_events": out["straggler_events"],
+            "gang_p50": {str(k): v for k, v in out["gang_p50"].items()},
+            "step_profile": out["step_profile"],
+            "goodput_detail": out["goodput_detail"],
+            "hardware": out["hardware"]}
+
+
 def _world(sc: dict, rank: int, size: int) -> Dict[str, Any]:
     """The world as this rank sees it, and a sum over it."""
     t = torch.tensor([rank + 1.0])
@@ -739,9 +768,9 @@ def _world(sc: dict, rank: int, size: int) -> Dict[str, Any]:
 SCENARIOS = {"bn": _bn, "train": _train, "drain": _drain, "run": _run,
              "nccl_pair": _nccl_pair, "world": _world, "attn": _attn,
              "bert": _bert, "sprun": _sprun, "grads": _grads,
-             "mesh": _mesh}
+             "mesh": _mesh, "straggle": _straggle}
 #: scenarios that print their result as a JSON line, not to a file
-PRINTED = ("run", "nccl_pair", "world", "grads", "mesh")
+PRINTED = ("run", "nccl_pair", "world", "grads", "mesh", "straggle")
 
 
 def printed(sc: dict) -> bool:

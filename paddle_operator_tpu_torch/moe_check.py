@@ -484,7 +484,8 @@ def card_run(job: TrainJob, routes_ref: str = "",
     """``job`` through ``run_training`` on the card: per-step losses and
     gradient norms, per-step fingerprints (replicated leaves; expert
     leaves), digests of the final state's two parts, step ms, B4 and
-    flash launches, peak GB and the MoE collectives' traffic; with
+    flash launches, peak GB, the MoE collectives' traffic, and the run's
+    step profile, straggler events and last gang view; with
     ``routes_ref``, the tokens of the first MoE layer at step 0 routed
     apart from one process's; with ``grads_ref``, step 0's gradients
     against one process's (replicated leaves whole, expert leaves this
@@ -561,6 +562,9 @@ def card_run(job: TrainJob, routes_ref: str = "",
                      **{"flash_" + k: v for k, v in
                         attention.flash_attention.launches.items()}},
         "path_launches": dict(moe.moe_apply_fused.path_launches),
+        "step_profile": out["step_profile"],
+        "straggler_events": out["straggler_events"],
+        "gang_p50": {str(k): v for k, v in out.get("gang_p50", {}).items()},
     })
     return got
 

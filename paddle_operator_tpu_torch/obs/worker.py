@@ -1,0 +1,400 @@
+"""Worker-plane observability of the port: its copy of
+``paddle_operator_tpu/obs/worker.py``, whole. The runner's ``/metrics``
+endpoint, the bounded per-step phase profiler and cross-worker straggler
+detection.
+
+* :class:`StepProfiler` — a bounded ring of per-step phase timings
+  (``data_wait`` / ``h2d`` / ``dispatch`` / ``collective`` / ``d2h`` /
+  ``checkpoint``), on the same host clocks as
+  :class:`~..utils.trace.StageTimes` but kept per step so quantiles and
+  drift are computable. ``stats()`` is what the runner exports in
+  ``result["step_profile"]``, the worker /metrics endpoint, and the
+  trace JSONL (``step_profile`` events at log boundaries).
+* :class:`StragglerDetector` — a worker whose dispatch p50 drifts more
+  than ``k``x above the gang median is a straggler: one slow worker
+  stalls the whole gang's collectives, so the *gang* pays its latency.
+  The runner feeds it the all-gathered per-worker p50s (or the
+  injectable ``TrainJob.gang_p50_source``); a positive detection emits a
+  ``straggler`` trace event and bumps ``tpujob_straggler_total``.
+* :class:`WorkerMetricsServer` — the zero-dependency ``/metrics``
+  endpoint, whose family names the operator scrapes: they are the
+  reference's, letter for letter.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+from .exposition import escape_label_value, format_value, http_respond
+
+#: per-step phases the profiler understands (a record may carry any
+#: subset — e.g. ``checkpoint`` only on boundary steps)
+STEP_PHASES = ("data_wait", "h2d", "dispatch", "collective", "d2h",
+               "checkpoint")
+
+#: straggler threshold: p50 above k x gang median
+STRAGGLER_K = 2.0
+
+
+class StepProfiler:
+    """Bounded ring of per-step phase timings (seconds). Thread-safe;
+    ``depth`` bounds memory no matter how long the run."""
+
+    def __init__(self, depth: int = 512):
+        self._lock = threading.Lock()
+        self._ring: Deque[Tuple[int, Dict[str, float]]] = \
+            deque(maxlen=depth)
+
+    def record(self, step: int, **phases: float) -> None:
+        clean = {k: float(v) for k, v in phases.items()
+                 if v is not None and v >= 0}
+        if not clean:
+            return
+        with self._lock:
+            self._ring.append((int(step), clean))
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-phase ``{p50, p90, p99, mean, count}`` over the ring."""
+        with self._lock:
+            entries = list(self._ring)
+        series: Dict[str, List[float]] = {}
+        for _step, phases in entries:
+            for phase, s in phases.items():
+                series.setdefault(phase, []).append(s)
+        out: Dict[str, Dict[str, float]] = {}
+        for phase, vals in series.items():
+            vals.sort()
+            out[phase] = {
+                "p50": round(_quantile(vals, 0.50), 6),
+                "p90": round(_quantile(vals, 0.90), 6),
+                "p99": round(_quantile(vals, 0.99), 6),
+                "mean": round(sum(vals) / len(vals), 6),
+                "count": len(vals),
+            }
+        return out
+
+    def p50(self, phase: str) -> float:
+        with self._lock:
+            vals = sorted(s for _step, phases in self._ring
+                          for p, s in phases.items() if p == phase)
+        return _quantile(vals, 0.50) if vals else 0.0
+
+    def totals(self) -> Dict[str, float]:
+        """Accumulated seconds per phase across the ring (badput feed)."""
+        with self._lock:
+            entries = list(self._ring)
+        out: Dict[str, float] = {}
+        for _step, phases in entries:
+            for phase, s in phases.items():
+                out[phase] = out.get(phase, 0.0) + s
+        return out
+
+
+def _quantile(sorted_vals: List[float], q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    idx = min(len(sorted_vals) - 1, max(0, int(q * len(sorted_vals))))
+    return sorted_vals[idx]
+
+
+class StragglerDetector:
+    """Flag workers whose step p50 drifts above ``k`` x the gang median.
+
+    Stateless per evaluation: the caller supplies the gang view (the
+    runner allgathers per-worker dispatch p50s at log boundaries; tests
+    inject a fake gang). A uniform gang — every worker at the median —
+    can never be flagged (strict ``>`` against ``k >= 1``), so there are
+    no false positives without real drift. Needs at least
+    ``min_workers`` (a 2-worker gang's median is dragged by the
+    straggler itself; 3+ gives a stable reference)."""
+
+    def __init__(self, k: float = STRAGGLER_K, min_workers: int = 3,
+                 min_p50: float = 1e-6):
+        if k < 1.0:
+            raise ValueError("straggler k must be >= 1.0, got %r" % k)
+        self.k = k
+        self.min_workers = max(2, min_workers)
+        self.min_p50 = min_p50
+
+    def evaluate(self, p50s: Dict[Any, float]) -> List[Any]:
+        """Worker ids whose p50 exceeds k x the gang median."""
+        if len(p50s) < self.min_workers:
+            return []
+        med = _median(list(p50s.values()))
+        if med <= self.min_p50:
+            return []
+        return sorted((w for w, v in p50s.items() if v > self.k * med),
+                      key=str)
+
+
+def median(values: List[float]) -> float:
+    """The one median both planes use (straggler gang reference, the
+    throughput baseline) — even-sized inputs average the middle pair."""
+    vals = sorted(values)
+    n = len(vals)
+    if n == 0:
+        return 0.0
+    mid = n // 2
+    return vals[mid] if n % 2 else (vals[mid - 1] + vals[mid]) / 2.0
+
+
+_median = median  # internal alias
+
+
+class ThroughputBaseline:
+    """Per-stream backend-degradation detector: a sample collapsing
+    below ``degraded_ratio`` x the stream's OWN recent healthy median
+    (last ``window`` samples, at least ``min_samples``) flips to
+    degraded; recovery above ``recovery_ratio`` x baseline re-arms.
+    Degraded samples are never folded into the baseline, so a long
+    outage cannot normalize itself away.
+
+    The shared primitive behind the operator's
+    :meth:`~.ledger.GoodputLedger.observe_throughput` and the runner's
+    own examples/s self-check (the production feed: the worker is the
+    authoritative source of its throughput). NOT thread-safe — callers
+    own the locking."""
+
+    def __init__(self, degraded_ratio: float = 0.25,
+                 recovery_ratio: float = 0.5, window: int = 5,
+                 min_samples: int = 3):
+        self.degraded_ratio = degraded_ratio
+        self.recovery_ratio = recovery_ratio
+        self._min = max(1, min_samples)
+        self._hist: Deque[float] = deque(maxlen=max(self._min, window))
+        self.degraded = False
+
+    @property
+    def baseline(self) -> float:
+        return median(list(self._hist))
+
+    def observe(self, eps: float) -> Optional[str]:
+        """Feed one sample; returns ``"degraded"`` / ``"recovered"`` on
+        a state change, None otherwise."""
+        eps = float(eps)
+        base = self.baseline if len(self._hist) >= self._min else None
+        if self.degraded:
+            if base is not None and eps >= self.recovery_ratio * base:
+                self.degraded = False
+                self._hist.append(eps)
+                return "recovered"
+            return None
+        if base is not None and base > 0 and \
+                eps < self.degraded_ratio * base:
+            self.degraded = True
+            return "degraded"
+        self._hist.append(eps)
+        return None
+
+
+# ---------------------------------------------------------------------------
+# worker-side exposition (the training runner's /metrics)
+# ---------------------------------------------------------------------------
+
+_WORKER_GAUGES = [
+    ("tpujob_worker_steps_total",
+     "Optimizer steps completed this run.", "counter"),
+    ("tpujob_worker_steps_per_second",
+     "Training throughput at the last log boundary.", "gauge"),
+    ("tpujob_worker_examples_per_second",
+     "Example throughput at the last log boundary.", "gauge"),
+    ("tpujob_worker_loss",
+     "Loss at the last resolved log boundary.", "gauge"),
+    ("tpujob_worker_loader_queue_depth",
+     "Prestaged batches/windows waiting in the input pipeline.", "gauge"),
+    ("tpujob_worker_goodput_ratio",
+     "Productive step-dispatch time over wall time.", "gauge"),
+    ("tpujob_worker_mfu",
+     "Model FLOP/s utilization at the last readback-synced boundary "
+     "(achieved step FLOP/s over the chip's peak).", "gauge"),
+    ("tpujob_worker_arithmetic_intensity",
+     "FLOPs per HBM byte of the compiled train step (roofline x-axis).",
+     "gauge"),
+]
+
+_WORKER_COUNTERS = [
+    ("tpujob_straggler_total",
+     "Times this worker was attributed as the gang straggler "
+     "(step p50 above k x the gang median).", "counter"),
+    ("tpujob_worker_backend_degraded_total",
+     "Backend-degradation episodes this worker detected against its "
+     "own examples/s baseline (silent CPU-fallback alarm).", "counter"),
+]
+
+
+class WorkerMetricsServer:
+    """Zero-dependency ``/metrics`` endpoint for the training runner.
+
+    The runner pushes values with :meth:`update` /
+    :meth:`set_stage_summary` / :meth:`set_step_stats` /
+    :meth:`set_badput` / :meth:`inc`; scrapes render them in the same
+    text exposition format the operator serves (the reference's strict
+    parser holds it in the tests). ``bind=":0"`` picks a free port
+    (tests); production sets ``TPUJOB_WORKER_METRICS_PORT``.
+    """
+
+    def __init__(self, bind: str = ":0"):
+        host, _, port = bind.rpartition(":")
+        outer = self
+        self._lock = threading.Lock()
+        self._values: Dict[str, float] = {}
+        self._stages: Dict[str, Dict[str, float]] = {}
+        self._step_stats: Dict[str, Dict[str, float]] = {}
+        self._badput: Dict[str, float] = {}
+        self._counters: Dict[str, int] = {}
+        self._hbm: Dict[str, float] = {}
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self) -> None:  # noqa: N802 (http.server API)
+                if self.path != "/metrics":
+                    http_respond(self, 404, b"")
+                    return
+                http_respond(self, 200, outer.metrics_text().encode(),
+                             ctype="text/plain; version=0.0.4")
+
+            def log_message(self, *a: Any) -> None:
+                pass
+
+        self._httpd = ThreadingHTTPServer((host or "0.0.0.0", int(port)),
+                                          Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle -------------------------------------------------------
+
+    def start(self) -> "WorkerMetricsServer":
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True, name="worker-metrics")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._httpd.shutdown()
+            self._thread = None
+        self._httpd.server_close()
+
+    @property
+    def url(self) -> str:
+        return "http://127.0.0.1:%d" % self.port
+
+    # -- updates (runner) ------------------------------------------------
+
+    def update(self, **values: float) -> None:
+        """Merge gauge/counter values by short name (``steps_total``,
+        ``steps_per_second``, ``examples_per_second``, ``loss``,
+        ``loader_queue_depth``, ``goodput_ratio``)."""
+        with self._lock:
+            for k, v in values.items():
+                if v is not None:
+                    self._values[k] = float(v)
+
+    def set_stage_summary(self, summary: Dict[str, Dict[str, float]]) -> None:
+        """Publish a :meth:`~..utils.trace.StageTimes.summary` breakdown."""
+        with self._lock:
+            self._stages = {k: dict(v) for k, v in summary.items()}
+
+    def set_step_stats(self, stats: Dict[str, Dict[str, float]]) -> None:
+        """Publish a :meth:`StepProfiler.stats` breakdown (per-phase
+        quantiles over the bounded step ring)."""
+        with self._lock:
+            self._step_stats = {k: dict(v) for k, v in stats.items()}
+
+    def set_badput(self, badput: Dict[str, float]) -> None:
+        """Publish the runner's local badput attribution (seconds per
+        cause — the worker half of the operator's goodput ledger)."""
+        with self._lock:
+            self._badput = {k: float(v) for k, v in badput.items()}
+
+    def set_hbm(self, stats: Dict[str, float]) -> None:
+        """Publish a live device-memory sample
+        (:func:`~.hardware.device_memory_stats`: ``in_use`` / ``peak``
+        / ``limit`` bytes) — empty dict clears the family."""
+        with self._lock:
+            self._hbm = {k: float(v) for k, v in stats.items()}
+
+    def inc(self, family: str, n: int = 1) -> None:
+        """Bump a declared counter (``tpujob_straggler_total``)."""
+        with self._lock:
+            self._counters[family] = self._counters.get(family, 0) + n
+
+    # -- exposition ------------------------------------------------------
+
+    def metrics_text(self) -> str:
+        with self._lock:
+            values = dict(self._values)
+            stages = {k: dict(v) for k, v in self._stages.items()}
+            step_stats = {k: dict(v) for k, v in self._step_stats.items()}
+            badput = dict(self._badput)
+            counters = dict(self._counters)
+            hbm = dict(self._hbm)
+        lines: List[str] = []
+        for name, help_text, mtype in _WORKER_GAUGES:
+            short = name[len("tpujob_worker_"):]
+            if short not in values:
+                continue
+            lines.append("# HELP %s %s" % (name, help_text))
+            lines.append("# TYPE %s %s" % (name, mtype))
+            lines.append("%s %s" % (name, format_value(values[short])))
+        if stages:
+            lines.append("# HELP tpujob_worker_stage_seconds_total Host "
+                         "wall-clock accumulated per pipeline stage.")
+            lines.append("# TYPE tpujob_worker_stage_seconds_total counter")
+            for stage in sorted(stages):
+                lines.append(
+                    'tpujob_worker_stage_seconds_total{stage="%s"} %.6f'
+                    % (escape_label_value(stage),
+                       stages[stage].get("ms", 0.0) / 1e3))
+            lines.append("# HELP tpujob_worker_stage_calls_total Times "
+                         "each pipeline stage was entered.")
+            lines.append("# TYPE tpujob_worker_stage_calls_total counter")
+            for stage in sorted(stages):
+                lines.append(
+                    'tpujob_worker_stage_calls_total{stage="%s"} %d'
+                    % (escape_label_value(stage),
+                       int(stages[stage].get("count", 0))))
+        if step_stats:
+            lines.append("# HELP tpujob_worker_step_phase_seconds Per-"
+                         "step phase timing quantiles over the bounded "
+                         "step-profile ring.")
+            lines.append("# TYPE tpujob_worker_step_phase_seconds gauge")
+            for phase in sorted(step_stats):
+                for stat in ("p50", "p90", "p99", "mean"):
+                    if stat in step_stats[phase]:
+                        lines.append(
+                            'tpujob_worker_step_phase_seconds'
+                            '{phase="%s",stat="%s"} %.6f'
+                            % (escape_label_value(phase), stat,
+                               step_stats[phase][stat]))
+        if badput:
+            lines.append("# HELP tpujob_worker_badput_seconds_total "
+                         "Worker-local badput attribution by cause.")
+            lines.append("# TYPE tpujob_worker_badput_seconds_total "
+                         "counter")
+            for cause in sorted(badput):
+                lines.append(
+                    'tpujob_worker_badput_seconds_total{cause="%s"} %.6f'
+                    % (escape_label_value(cause), badput[cause]))
+        if hbm:
+            lines.append("# HELP tpujob_worker_hbm_bytes Live device-"
+                         "memory sample (device.memory_stats).")
+            lines.append("# TYPE tpujob_worker_hbm_bytes gauge")
+            for kind in sorted(hbm):
+                lines.append(
+                    'tpujob_worker_hbm_bytes{kind="%s"} %s'
+                    % (escape_label_value(kind), format_value(hbm[kind])))
+        for name, help_text, mtype in _WORKER_COUNTERS:
+            if name not in counters:
+                continue
+            lines.append("# HELP %s %s" % (name, help_text))
+            lines.append("# TYPE %s %s" % (name, mtype))
+            lines.append("%s %d" % (name, counters[name]))
+        return "\n".join(lines) + "\n"

@@ -16,7 +16,9 @@ CUDA tensor the wrappers launch the kernel or raise.
 
 Paged decode (serving): one query token per sequence against a KV history
 scattered across fixed-size cache pages (:mod:`..serving.kv_cache`, the
-vLLM layout). :func:`paged_decode_attention` launches the hand-written
+vLLM layout). Its kernel reports no FLOPs to ``FlopCounterMode`` (its
+plain version's einsums are counted there); serving has no hardware
+plane. :func:`paged_decode_attention` launches the hand-written
 CUDA kernel ``csrc/paged_decode.cu`` (fp32 or bf16 q and pages, split over
 pages, then merged) for CUDA tensors and uses
 :func:`_reference_paged_decode`, the plain gather-einsum version, only for
@@ -230,6 +232,83 @@ def _on(x: torch.Tensor, plain, kernel, *args):
     return kernel(*args)
 
 
+# The three calls are operators of their own (``torch.ops.
+# paddle_tpu_torch.flash_{fwd,dq,dkv}``, CPU and CUDA kernels), so that
+# ``torch.utils.flop_counter.FlopCounterMode`` sees them: it cannot see
+# into a ctypes launch, and counts each operator by its formula below in
+# place of whatever its body runs. Kernel and plain version therefore
+# count the same FLOPs, and a step counts the same whichever ran.
+_LIB = torch.library.Library("paddle_tpu_torch", "DEF")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, float scale, "
+            "bool causal) -> (Tensor, Tensor)")
+_LIB.define("flash_dq(Tensor q, Tensor k, Tensor v, Tensor dout, "
+            "Tensor lse, Tensor delta, float scale, bool causal) -> Tensor")
+_LIB.define("flash_dkv(Tensor q, Tensor k, Tensor v, Tensor dout, "
+            "Tensor lse, Tensor delta, float scale, bool causal) "
+            "-> (Tensor, Tensor)")
+
+
+def _fwd_op(q, k, v, scale, causal):
+    return _on(q, _plain_flash_fwd, _launch_fwd, q, k, v, scale, causal)
+
+
+def _dq_op(q, k, v, dout, lse, delta, scale, causal):
+    return _on(q, _plain_flash_dq, _launch_dq, q, k, v, dout, lse, delta,
+               scale, causal)
+
+
+def _dkv_op(q, k, v, dout, lse, delta, scale, causal):
+    return _on(q, _plain_flash_dkv, _launch_dkv, q, k, v, dout, lse, delta,
+               scale, causal)
+
+
+for _name, _fn in (("flash_fwd", _fwd_op), ("flash_dq", _dq_op),
+                   ("flash_dkv", _dkv_op)):
+    for _key in ("CPU", "CUDA"):
+        _LIB.impl(_name, _fn, _key)
+
+
+def attention_pairs(s: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes at sequence length
+    ``s``: all S^2, or the S(S+1)/2 on and below the diagonal."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def flash_flops(kernel: str, q_shape: Sequence[int], causal: bool) -> int:
+    """Model FLOPs of one call of flash ``kernel`` (``fwd``, ``dq``,
+    ``dkv``) on ``[B, H, S, D]``: two products of 2*D FLOPs a live
+    (query, key) pair each, Q K^T and P V forward, dO V^T and dS K for
+    dQ, P^T dO and dS^T Q for dK/dV. The backward's recompute of the
+    scores is not counted (MFU's convention), and causal attention counts
+    the pairs it keeps. Non-causal, the forward's count is the one
+    ``FlopCounterMode`` gives ``_plain_flash_fwd``, and the three
+    together the one it gives the einsum attention's forward and
+    backward; the three together are the 12 D pairs a head of
+    ``chip_smoke.py``'s hand count."""
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError("no flash kernel %r" % kernel)
+    b, h, s, d = q_shape
+    return 4 * b * h * d * attention_pairs(s, causal)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import flop_registry, \
+        register_flop_formula
+
+    def formula(kernel):
+        def count(q_shape, *args, out_shape=None, **kwargs) -> int:
+            return flash_flops(kernel, q_shape, bool(args[-1]))
+        return count
+
+    for kernel in ("fwd", "dq", "dkv"):
+        op = getattr(torch.ops.paddle_tpu_torch, "flash_" + kernel)
+        if op not in flop_registry:
+            register_flop_formula(op)(formula(kernel))
+
+
+_register_flop_formulas()
+
+
 class _FlashAttention(torch.autograd.Function):
     """(O, LSE), both differentiable; an unused output's cotangent stays
     None."""
@@ -238,8 +317,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale: float, causal: bool):
         ctx.set_materialize_grads(False)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = _on(q, _plain_flash_fwd, _launch_fwd, q, k, v, scale,
-                       causal)
+        out, lse = torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, scale,
+                                                        causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale, ctx.causal = scale, causal
         return out, lse
@@ -256,8 +335,8 @@ class _FlashAttention(torch.autograd.Function):
         if g_lse is not None:
             delta = delta - g_lse.float()
         args = (q, k, v, g_out, lse, delta, ctx.scale, ctx.causal)
-        dq = _on(q, _plain_flash_dq, _launch_dq, *args)
-        dk, dv = _on(q, _plain_flash_dkv, _launch_dkv, *args)
+        dq = torch.ops.paddle_tpu_torch.flash_dq(*args)
+        dk, dv = torch.ops.paddle_tpu_torch.flash_dkv(*args)
         return dq, dk, dv, None, None
 
 

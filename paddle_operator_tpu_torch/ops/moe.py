@@ -22,6 +22,12 @@ formulations:
 ``moe_apply(fused=None)`` reads ``TPUJOB_MOE_FUSED=1`` at call time and
 takes the fused path only where :func:`fused_supports` holds.
 
+Dispatch and combine move rows and scale them by a gate: no matrix
+product. ``FlopCounterMode`` counts 0 FLOPs for B4 on the kernels and on
+the plain versions alike, so they report none to the hardware plane
+(:mod:`..obs.hardware`); the experts' MLPs around them are PyTorch
+products the counter sees.
+
 The reference pads the capacity axis to a multiple of 128 and the tokens
 to its tile, and replicates the routing metadata over 128 lanes: layout
 rules of the TPU. The port's expert buffers are ``[E, capacity, D]``:

@@ -20,7 +20,10 @@ decayed momentum, exactly as in the reference.
 :func:`fused_sgd` is the drop-in for :func:`sgd` that launches the
 hand-written multi-tensor CUDA kernel ``csrc/fused_sgd.cu`` once per step
 over every leaf (:func:`multi_tensor_sgd`). The lr is a 0-d fp32 device
-tensor computed on the device, never a host float.
+tensor computed on the device, never a host float. The update does no
+matrix product: ``FlopCounterMode`` counts 0 FLOPs for it on the kernel
+and on the plain version alike, and the kernel reports none to the
+hardware plane (:mod:`..obs.hardware`).
 """
 
 from __future__ import annotations

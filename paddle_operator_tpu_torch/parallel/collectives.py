@@ -94,11 +94,17 @@ def _on_nccl(group: Group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
+#: the means over a group since the last reset (the gradient buckets, the
+#: metrics, sync BatchNorm's statistics): count, bytes and host seconds
+mean_traffic = {"mean": 0, "bytes": 0, "seconds": 0.0}
+
+
 def mean_(t: torch.Tensor, group: Group, shards: int = 1) -> torch.Tensor:
     """Average ``t`` over ``group`` in place, times ``shards``; returns
-    ``t``."""
+    ``t``. Counted in :data:`mean_traffic`."""
     if group is None:
         return t
+    t0 = time.perf_counter()
     if _on_nccl(group):
         dist.all_reduce(t, op=dist.ReduceOp.AVG, group=group)
     else:
@@ -106,7 +112,30 @@ def mean_(t: torch.Tensor, group: Group, shards: int = 1) -> torch.Tensor:
         t.div_(dist.get_world_size(group))
     if shards != 1:
         t.mul_(shards)
+    _count(mean_traffic, "mean", t, t0)
     return t
+
+
+def host_seconds() -> float:
+    """Host seconds this process has spent in the collectives of a train
+    step since the traffic counters' last reset: the means, the sequence,
+    MoE, tensor- and pipeline-parallel collectives. The runner reads it
+    around a step to tell the step's own time from its waits on peers."""
+    return sum(d["seconds"] for d in (mean_traffic, transfers, moe_traffic,
+                                      tp_traffic, pp_traffic))
+
+
+def gather_floats(value: float, group: Group) -> List[float]:
+    """Every rank's ``value``, in rank order (an all-gather: every rank
+    of ``group`` calls it at the same point). On the backend's own
+    device: a CUDA tensor on NCCL, a CPU one on gloo."""
+    if _alone(group):
+        return [float(value)]
+    t = torch.tensor([float(value)], dtype=torch.float64,
+                     device=_scalar_device(group))
+    out = [torch.empty_like(t) for _ in range(size(group))]
+    dist.all_gather(out, t, group=group)
+    return [float(x.item()) for x in out]
 
 
 def bucket_plan(tensors: Sequence[torch.Tensor],

@@ -31,6 +31,11 @@ the JAX package's) into whole leaves, for one process;
 own blocks for the mesh it restores into, reading and CRC-checking only
 the tiles that overlap them; :func:`load_into` copies either into a live
 state (cutting whole leaves to a layout's blocks).
+
+Recovery events (``save``, ``restore``, ``corrupt_skipped``,
+``duplicate_save_skipped``, ``gc``) go to the process trace as
+``checkpoint_<event>`` and to an optional observer
+(:func:`set_checkpoint_observer`), at the reference's call sites.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import threading
 import time
 import zipfile
 import zlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +57,7 @@ import torch.distributed as dist
 
 from .. import bridge
 from ..parallel import collectives, sharding
+from .trace import tracer
 
 log = logging.getLogger("tpujob.checkpoint")
 
@@ -64,6 +70,33 @@ COMMIT_MARKER = "COMMIT"
 class CorruptCheckpointError(ValueError):
     """A step directory exists but cannot be trusted: manifest missing or
     torn, or a leaf failing its checksum."""
+
+
+# -- recovery-event observer -------------------------------------------------
+
+_observer_lock = threading.Lock()
+_observer: Optional[Callable[[str, dict], None]] = None
+
+
+def set_checkpoint_observer(fn: Optional[Callable[[str, dict], None]]
+                            ) -> None:
+    """Install a process-wide recovery-event observer ``fn(event,
+    detail)``. Events: ``save``, ``restore``, ``corrupt_skipped``,
+    ``duplicate_save_skipped``, ``gc``. None uninstalls it."""
+    global _observer
+    with _observer_lock:
+        _observer = fn
+
+
+def _notify(event: str, **detail: Any) -> None:
+    tracer().event("checkpoint_%s" % event, **detail)
+    with _observer_lock:
+        fn = _observer
+    if fn is not None:
+        try:
+            fn(event, detail)
+        except Exception:  # an observer must never break a save/restore
+            log.exception("checkpoint observer failed on %r", event)
 
 
 def _leaf_crc(arr: Any) -> int:
@@ -113,6 +146,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     log.info("checkpoint saved: %s", final)
+    _notify("save", dir=ckpt_dir, step=step)
     gc_checkpoints(ckpt_dir, keep_last_n=keep)
     return final
 
@@ -146,6 +180,7 @@ class AsyncCheckpointer:
         self.wait()   # one in flight; raises a previous write's error
         if self._last_accepted == (ckpt_dir, step):
             log.info("checkpoint step %d already saved; skipped", step)
+            _notify("duplicate_save_skipped", dir=ckpt_dir, step=step)
             return
         # owned snapshot now: the loop goes on updating the state in place
         host_state = bridge.tree_map(_owned_host, state)
@@ -188,6 +223,13 @@ class AsyncCheckpointer:
         if err is not None:
             self._last_accepted = None
             raise err
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Bounded join-on-close: drain the write in flight for at most
+        ``timeout`` seconds (``TimeoutError`` past it) and surface its
+        exception, so a process never exits on a silently unfinished or
+        failed write."""
+        self.wait(timeout=timeout)
 
 
 def _listed_steps(ckpt_dir: str,
@@ -274,6 +316,7 @@ def quarantine_step(ckpt_dir: str, step: int) -> Optional[str]:
         os.rename(src, dst)
     except OSError:
         return None
+    _notify("corrupt_skipped", dir=ckpt_dir, step=step, quarantine=dst)
     log.warning("quarantined corrupt checkpoint step %d -> %s", step, dst)
     return dst
 
@@ -332,6 +375,8 @@ def gc_checkpoints(ckpt_dir: str, keep_last_n: int = 3,
             if age >= stale_grace_seconds:
                 shutil.rmtree(path, ignore_errors=True)
                 removed.append(path)
+    if removed:
+        _notify("gc", dir=ckpt_dir, removed=len(removed))
     return removed
 
 
@@ -371,6 +416,7 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
                 "checkpoint step %d leaf %r failed its CRC32 check (bit rot "
                 "or torn write)" % (step, key))
     log.info("checkpoint restored: %s", path)
+    _notify("restore", dir=ckpt_dir, step=step)
     return bridge.unflatten(manifest["structure"], flat), manifest
 
 
@@ -477,6 +523,7 @@ def save_checkpoint_sharded(ckpt_dir: str, step: int, state: Any,
             shutil.rmtree(final)
         os.rename(staging, final)
         log.info("sharded checkpoint saved: %s", final)
+        _notify("save", dir=ckpt_dir, step=step, format="sharded")
         gc_checkpoints(ckpt_dir, keep_last_n=keep)
     # publish barrier: no rank lists the directory while rank 0 renames
     # and prunes, so every rank restores the same step
@@ -517,6 +564,17 @@ def _load_shard(path: str, dtype_str: str, crc: Optional[int]) -> np.ndarray:
     return data if data.dtype == want else data.view(want)
 
 
+def read_manifest(ckpt_dir: str, step: Optional[int] = None) -> dict:
+    """One step's manifest (the newest valid step's by default);
+    :class:`CorruptCheckpointError` when the step's manifest is missing,
+    torn or uncommitted, FileNotFoundError when there is no step."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError("no checkpoints under %s" % ckpt_dir)
+    return _load_manifest(ckpt_dir, step)
+
+
 def restore_checkpoint_sharded(ckpt_dir: str, step: Optional[int] = None,
                                _manifest: Optional[dict] = None
                                ) -> Tuple[Any, dict]:
@@ -553,6 +611,7 @@ def restore_checkpoint_sharded(ckpt_dir: str, step: Optional[int] = None,
             out[tuple(slice(a, b) for a, b in shard["slices"])] = data
         flat[key] = out
     log.info("sharded checkpoint restored: %s", path)
+    _notify("restore", dir=ckpt_dir, step=step)
     return bridge.unflatten(manifest["structure"], flat), manifest
 
 
@@ -621,6 +680,7 @@ def restore_tiles(ckpt_dir: str, tiles: Dict[str, Any],
                            tiles[key].blocks if key in tiles else {})
         flat[key] = _read_block(path, entry, want, {})
     log.info("sharded checkpoint restored shard-wise: %s", path)
+    _notify("restore", dir=ckpt_dir, step=step, format="sharded")
     return bridge.unflatten(manifest["structure"], flat), manifest
 
 

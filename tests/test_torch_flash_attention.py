@@ -434,3 +434,29 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
                               0.125, False)
     with pytest.raises(ValueError):        # k of another type than q
         attention._launch_fwd(q, k.bfloat16(), v, 0.125, False)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_and_plain_versions_count_the_same_flops(cuda_device):
+    """The flash operators report the same FLOPs to FlopCounterMode
+    whether the kernels (CUDA tensors) or the plain versions (CPU tensors)
+    run: a step counts the same FLOPs on either path."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counts = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        q, k, v, g = _card_inputs(dev, 512, 64, torch.bfloat16)
+        for t in (q, k, v):
+            t.requires_grad_()
+        before = dict(attention.flash_attention.launches)
+        with FlopCounterMode(display=False) as counter:
+            out = attention.flash_attention(q, k, v, causal=True)
+            out.backward(g)
+        counts[dev.type] = counter.get_total_flops()
+        launched = {key: n - before[key] for key, n in
+                    attention.flash_attention.launches.items()}
+        assert launched == ({"fwd": 1, "dq": 1, "dkv": 1}
+                            if dev.type == "cuda" else
+                            {"fwd": 0, "dq": 0, "dkv": 0})
+    assert counts["cuda"] == counts["cpu"] == \
+        12 * 2 * 4 * 64 * attention.attention_pairs(512, True)
