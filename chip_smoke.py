@@ -5,8 +5,19 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
     python3 chip_smoke.py
 
 It builds every hand-written kernel from ``paddle_operator_tpu_torch/csrc``
-and holds each against its plain PyTorch version at the shapes of its
-path. Then it drives the fourteen ported paths:
+through the compile cache's ladder and holds each against its plain
+PyTorch version at the shapes of its path. Then it drives the fifteen
+ported paths:
+
+* compile_cache: the cold start of a pod, in fresh spawned processes
+  against the port's artifact server run here: three cold pods build
+  each library once and fetch it twice under compile leases, a warm
+  restart loads all four from its directory, a poisoned bundle is
+  rejected by its digest and rebuilt, a sound bundle of the wrong
+  library is rejected at its first use and rebuilt, and a killed
+  leaseholder's lease is taken within its TTL; every kernel launched
+  from a fetched or rebuilt library matches its plain version; gates in
+  ``phase_compile_cache``;
 
 * serve: GPT-2 small (``BASE_CONFIG``, random weights from a seed)
   through ``ContinuousBatcher`` + ``ServingEngine`` on the paged kernel
@@ -15,7 +26,8 @@ path. Then it drives the fourteen ported paths:
   fp32 master params) through ``TrainJob`` + ``run_training``, 30 steps
   with ``fused_sgd`` (the multi-tensor kernel), the same 30 with ``sgd``,
   and a resume of the first run from its step-10 checkpoint; the losses
-  must agree as stated in ``phase_train``. The first run also carries the
+  must agree as stated in ``phase_train``; the resume reads the first
+  run's step cost from the compile cache. The first run also carries the
   runner's observability: its ``/metrics`` endpoint scraped while it
   trains, a ``torch.profiler`` window of steps 11-13, the hardware block
   (the H100's registry peak, FLOPs counted on the step) and the goodput
@@ -120,17 +132,29 @@ import threading
 import time
 import urllib.request
 
+# Python keeps the bytecode of what this script and the worker processes
+# it starts import under the checkout's build/. Where the installed
+# packages carry no bytecode and the environment forbids writing any
+# (PYTHONDONTWRITEBYTECODE), every process would compile torch from
+# source again: seconds each, for some sixty processes.
+PYCACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "pycache")
+os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+sys.pycache_prefix, sys.dont_write_bytecode = PYCACHE, False
+
 import numpy as np
 import torch
 
-from paddle_operator_tpu_torch import bridge, dp_check, elastic_check, \
-    hybrid_check, migrate_check, moe_check, pp_check, ps, ps_check, \
-    runner, testing, tp_check
+from paddle_operator_tpu_torch import artifacts, bridge, compile_cache, \
+    dp_check, elastic_check, hybrid_check, migrate_check, moe_check, \
+    pp_check, ps, ps_check, runner, testing, tp_check
 from paddle_operator_tpu_torch.artifacts.server import ArtifactServer
 from paddle_operator_tpu_torch.artifacts.state import pack_state_dir, \
     state_fingerprint
 from paddle_operator_tpu_torch.artifacts.store import ArtifactStore
 from paddle_operator_tpu_torch.data import process_shard, step_generator
+from paddle_operator_tpu_torch.device import deterministic_algorithms
 from paddle_operator_tpu_torch.migrate_check import resnet_optimizer
 from paddle_operator_tpu_torch.moe_check import rel_diffs
 from paddle_operator_tpu_torch.elastic.server import MembershipServer
@@ -271,11 +295,19 @@ def phase_env() -> dict:
 
 
 def phase_build() -> dict:
+    """Every library of csrc/ down the compile cache's ladder (built into
+    ``build/kernels`` on a fresh checkout, one nvcc a source, all
+    together)."""
     names = sorted(p.stem for p in _kernels.CSRC_DIR.glob("*.cu"))
-    cold = not any(_kernels.library_path(n).exists() for n in names)
     t0 = time.perf_counter()
-    _kernels.build(names)
-    out = {"phase": "build", "kernels": names, "cold": cold,
+    compile_cache.load_libraries(names)
+    libs = compile_cache.libraries()
+    out = {"phase": "build", "kernels": names,
+           "cold": all(libs[n]["rung"] == "built" for n in names),
+           "rungs": {n: libs[n]["rung"] for n in names},
+           "nvcc_s": {n: libs[n]["compile_s"] for n in names},
+           "fingerprints": {n: libs[n]["fingerprint"] for n in names},
+           "toolchain": compile_cache.toolchain_and_device(),
            "seconds": time.perf_counter() - t0}
     emit(out)
     return out
@@ -803,6 +835,480 @@ def phase_kernels(rate: float) -> dict:
                 + _moe_failures(moe_out))
     if problems:
         fail("kernels: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# compile_cache: kernel libraries down the ladder across fresh processes
+# ---------------------------------------------------------------------------
+
+#: the libraries of csrc/, one a source
+CACHE_LIBRARIES = ("flash_attention", "fused_sgd", "moe", "paged_decode")
+#: (e): the dead holder's lease TTL, the margin past it within which the
+#: waiter must take the lease, and the wait no run of the phase may reach
+CACHE_LEASE_TTL_S, CACHE_LEASE_MARGIN_S, CACHE_WAIT_S = 5.0, 10.0, 120.0
+#: the planted faults of the phase (each proven in a builder's call):
+#: a ladder that skips the lease (gate (a) reads 3 builds) and a store
+#: that skips the digest check (gate (c) fails)
+CACHE_PLANTED = ("no_lease", "no_digest")
+
+
+def _cache_kernel_checks(names) -> dict:
+    """Each kernel of the libraries ``names`` launched once through its
+    wrapper at a small case the kernels phase holds, against its plain
+    version on the same inputs: its launches (the wrapper's count, zeroed
+    just before), its largest error and whether it is within the kernels
+    phase's tolerance (B1 and B4 bitwise, fp32 B2 FLASH_TOL_F32, fp32 B3
+    KERNEL_TOL). Keyed by the kernels line's names."""
+    out = {}
+    if "fused_sgd" in names:
+        rng = np.random.default_rng(0)
+        shapes = ((64, 3, 7, 7), (1000,), (513,))
+        make = lambda: [torch.from_numpy(  # noqa: E731
+            rng.standard_normal(s, dtype=np.float32)).to(DEVICE)
+            for s in shapes]
+        params, grads = make(), make()
+        moms = [torch.zeros(s, device=DEVICE) for s in shapes]
+        plain_p = [t.clone() for t in params]
+        plain_m = [t.clone() for t in moms]
+        lr, decays = torch.full((), 0.1, device=DEVICE), [1e-4, 0.0, 1e-4]
+        optim.multi_tensor_sgd.launches = 0
+        optim.multi_tensor_sgd(params, grads, moms, decays, lr, 0.9)
+        launches = optim.multi_tensor_sgd.launches
+        optim._plain_multi_tensor_sgd(plain_p, grads, plain_m, decays, lr,
+                                      0.9, False)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(params + moms, plain_p + plain_m))
+        out["fused_sgd"] = {"launches": launches, "max_abs_err": err,
+                            "ok": err <= 0.0}
+    if "flash_attention" in names:
+        _zero(attention.flash_attention.launches)
+        q, k, v, g = _flash_inputs(2, 4, 512, 64, torch.float32)
+        got, want, _ = _flash_compare(q, k, v, g, True)
+        errors = _flash_errors(got, want)
+        for name, key, _ in FLASH_KERNELS:
+            outs = {"fwd": ("o", "lse"), "dq": ("dq",),
+                    "dkv": ("dk", "dv")}[key]
+            out[name] = {
+                "launches": attention.flash_attention.launches[key],
+                "max_abs_err": max(errors[o]["max_abs_err"] for o in outs),
+                "ok": max(errors[o]["worst"] for o in outs) <= 1.0}
+    if "moe" in names:
+        _zero(moe.moe_apply_fused.launches)
+        case = _moe_case(3 * 1024 - 5, 1.25, seed=1)
+        variants = {"dispatch": ("dispatch", BF16, BF16, False),
+                    "combine": ("combine", BF16, BF16, True)}
+        res = _moe_compare(case, tuple(variants.values()))
+        for name, key, _ in MOE_KERNELS:
+            r = res[moe_variant(*variants[key])]
+            out[name] = {"launches": moe.moe_apply_fused.launches[key],
+                         "max_abs_err": r["max_abs_err"],
+                         "ok": r["bitwise"]}
+    if "paged_decode" in names:
+        attention.paged_decode_attention.launches = 0
+        case = paged_decode_case("ragged")
+        q, kp, vp, tables, lens = (
+            torch.from_numpy(case[k]).to(DEVICE)
+            for k in ("q", "k_pages", "v_pages", "tables", "lens"))
+        got = attention.paged_decode_attention(q, kp, vp, tables, lens)
+        launches = attention.paged_decode_attention.launches
+        want = attention._reference_paged_decode(
+            q, kp, vp, tables, lens, 1.0 / q.shape[-1] ** 0.5)
+        errors = _paged_errors(got, want)
+        out["paged_decode_attention"] = {
+            "launches": launches, "max_abs_err": errors["max_abs_err"],
+            "ok": errors["worst"] <= 1.0}
+    return out
+
+
+def _plant_cache_fault(planted: str) -> None:
+    """Plant one of CACHE_PLANTED in this process."""
+    if planted == "no_lease":
+        def fetch_only(store, fingerprint, path, label):
+            members, tier = store.fetch(fingerprint)
+            return (tier if compile_cache._install(members, path)
+                    else None), None
+        compile_cache._fleet_rung = fetch_only
+    elif planted == "no_digest":
+        import struct
+
+        from paddle_operator_tpu_torch.artifacts import bundle
+
+        def unchecked(data, expect_fingerprint):
+            head = len(bundle.MAGIC) + 4
+            (hlen,) = struct.unpack(">I", data[head - 4:head])
+            header = json.loads(data[head:head + hlen])
+            off, members = head + hlen, {}
+            for m in header["members"]:
+                members[m["name"]] = data[off:off + m["size"]]
+                off += m["size"]
+            return members
+        bundle.parse = unchecked
+
+
+def _cache_child(queue, tag: str, env: dict, names, go,
+                 planted: str = "") -> None:
+    """One fresh process of phase compile_cache: its environment, then,
+    once ``go`` is set, the libraries ``names`` down the ladder and each
+    of their kernels launched once against its plain version. Puts
+    ("ready", tag), then ("done", tag, result) or ("error", tag, trace)."""
+    import traceback
+
+    try:
+        _apply_env(env)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _plant_cache_fault(planted)
+        torch.cuda.init()
+        queue.put(("ready", tag))
+        if not go.wait(timeout=600):
+            raise RuntimeError("never told to start")
+        t0 = time.perf_counter()
+        compile_cache.load_libraries(names)
+        ladder_s = time.perf_counter() - t0
+        kernels = _cache_kernel_checks(names)
+        store = artifacts.get_store()
+        queue.put(("done", tag, {
+            "pid": os.getpid(), "ladder_s": ladder_s, "t_done": time.time(),
+            "libraries": compile_cache.libraries(),
+            "block": compile_cache.startup_block(),
+            "store": store.stats() if store is not None else {},
+            "kernels": kernels}))
+    except BaseException:
+        queue.put(("error", tag, traceback.format_exc()))
+
+
+def _apply_env(env: dict) -> None:
+    """Set ``env`` in this process (None unsets)."""
+    for key, value in env.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+
+
+def _lease_holder(queue, env: dict, fingerprint: str, go) -> None:
+    """(e)'s leaseholder: takes ``fingerprint``'s compile lease once told
+    to, says so, and waits to be killed."""
+    _apply_env(env)
+    queue.put(("ready", "holder"))
+    go.wait(timeout=600)
+    lease = artifacts.get_store().acquire_compile_lease(fingerprint)
+    queue.put(("held", "holder", {"granted": lease.granted,
+                                  "at": time.time()}))
+    time.sleep(3600)
+
+
+def _cache_env(cache_dir: str, url: str = "", **extra) -> dict:
+    """A fresh process's environment: its own cache dir, the remote tier
+    alone (``TPUJOB_ARTIFACT_STORE=0``) or no tier."""
+    env = {"TPUJOB_COMPILE_CACHE_DIR": cache_dir,
+           "TPUJOB_ARTIFACT_STORE": "0", "TPUJOB_ARTIFACT_URL": url or None,
+           "TPUJOB_ARTIFACT_WAIT_S": str(CACHE_WAIT_S),
+           "TPUJOB_ARTIFACT_POLL_S": "0.05", "TPUJOB_COMPILE_CACHE": None}
+    env.update(extra)
+    return env
+
+
+def _take(queue, kind: str, count: int, timeout: float, procs) -> dict:
+    """``count`` messages of ``kind`` from the children's queue. An error
+    from a child, a child that died before it said anything more, or the
+    timeout fails the phase."""
+    import queue as queue_mod
+
+    got, deadline = {}, time.monotonic() + timeout
+    while len(got) < count:
+        try:
+            msg = queue.get(timeout=1.0)
+        except queue_mod.Empty:
+            # 0: a child that said all and left; -9: the killed holder
+            dead = [p.exitcode for p in procs
+                    if p.exitcode not in (None, 0, -9)]
+            if dead or time.monotonic() > deadline:
+                fail("compile_cache: %d of %d processes said %r (exit codes "
+                     "of the dead: %r)" % (len(got), count, kind, dead))
+            continue
+        if msg[0] == "error":
+            fail("compile_cache: process %s failed:\n%s" % (msg[1], msg[2]))
+        if msg[0] != kind:
+            fail("compile_cache: unexpected %r from %s" % (msg[0], msg[1]))
+        got[msg[1]] = msg[2] if len(msg) > 2 else None
+    return got
+
+
+class _UncheckedServer(ArtifactServer):
+    """An artifact server that hands out its disk's bytes without checking
+    them (a tier that lets a corrupted bundle through, as a flaky disk or
+    link would): the client's digest check is the one left."""
+
+    def read_bundle(self, fp):
+        path = self._path(fp)
+        try:
+            with open(path, "rb") as fh:
+                return fh.read()
+        except (OSError, TypeError):
+            return None
+
+
+def _kernel_problems(tag: str, res: dict) -> list:
+    return ["%s: %s off its plain version by %g (or launched %d times, "
+            "not once)" % (tag, name, k["max_abs_err"], k["launches"])
+            for name, k in sorted(res["kernels"].items())
+            if not k["ok"] or k["launches"] != 1]
+
+
+def phase_compile_cache(planted: str = "") -> dict:
+    """The compile cache across fresh processes (spawned, each with its
+    own empty ``TPUJOB_COMPILE_CACHE_DIR`` and ``TPUJOB_ARTIFACT_URL``,
+    ``TPUJOB_ARTIFACT_STORE=0``: the port's ArtifactServer run here is the
+    one arbiter). Each loads its libraries through the ladder and launches
+    each of their kernels once against its plain version
+    (:func:`_cache_kernel_checks`).
+
+    (a) cold fleet: three processes start together; across them each of
+        the four libraries is built once and fetched twice, the server
+        counts 4 lease grants and 4 releases and holds no lease, and every
+        launch is within its tolerance;
+    (b) warm restart: a process on (a)'s first directory, no URL: every
+        library local, 0 s in nvcc;
+    (c) poisoned bundle: fused_sgd's bundle with flipped bytes, served
+        unchecked (:class:`_UncheckedServer`): the client's digest rejects
+        it (``poisoned_remote`` 2: at the fetch before the lease and at
+        the one under it; nothing reaches the loader), builds fused_sgd
+        itself, and B1 matches;
+    (d) valid bundle, wrong library: moe's library under fused_sgd's key
+        (the digest is sound): its first use fails on the missing symbol,
+        ``note_first_call_reject`` counts it, fused_sgd is rebuilt from
+        its source and B1 matches;
+    (e) dead leaseholder: a process takes fused_sgd's lease (TTL
+        CACHE_LEASE_TTL_S) and is killed with SIGKILL; the waiter takes
+        the lease within the TTL plus CACHE_LEASE_MARGIN_S, builds and
+        publishes, and never waits out CACHE_WAIT_S.
+
+    (a), (c), (d) and (e) run together, each on a server of its own, and
+    (b) once (a) is done (its process started with the others). (c) and
+    (d) take their bundles from this process's own libraries (phase
+    build's, the same key). Planted faults
+    (``planted``, CACHE_PLANTED, each proven once in a builder's call): a
+    ladder that skips the lease (gate (a) reads 3 builds) and a store
+    that skips the digest check (gate (c) fails); a fingerprint without
+    the device or the toolchain is caught on the CPU
+    (``tests/test_torch_compile_cache.py``)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    servers, procs, problems = [], [], []
+    try:
+        def serve(name, cls=ArtifactServer):
+            srv = cls("127.0.0.1:0", store_dir=os.path.join(tmp, name))
+            servers.append(srv.start())
+            return srv
+
+        def spawn(target, *args):
+            p = ctx.Process(target=target, args=args, daemon=True)
+            p.start()
+            procs.append(p)
+            return p
+
+        queue = ctx.Queue()
+        fps = {n: compile_cache.library_fingerprint(n)
+               for n in CACHE_LIBRARIES}
+        # this process's own libraries (phase build's) give (c) and (d)
+        # their bundles, so that every case but (b) starts at once
+        own = {n: lib.path for n, lib in
+               compile_cache.load_libraries(CACHE_LIBRARIES).items()}
+        with open(own["fused_sgd"], "rb") as fh:
+            sgd_bytes = fh.read()
+        with open(own["moe"], "rb") as fh:
+            moe_bytes = fh.read()
+        fleet = serve("fleet")
+        # (c) fused_sgd's bundle with the library's first byte (its ELF
+        # magic) and its last flipped, handed out unchecked
+        poisoned = serve("poisoned", _UncheckedServer)
+        raw = bytearray(artifacts.pack(
+            fps["fused_sgd"], {compile_cache.LIBRARY_MEMBER: sgd_bytes}))
+        raw[len(raw) - len(sgd_bytes)] ^= 0xFF
+        raw[-1] ^= 0xFF
+        os.makedirs(poisoned.store_dir)
+        with open(os.path.join(poisoned.store_dir,
+                               fps["fused_sgd"] + ".tpuart"), "wb") as fh:
+            fh.write(bytes(raw))
+        # (d) moe's library under fused_sgd's key: a sound digest
+        wrong = serve("wrong")
+        ArtifactStore(url=wrong.url).publish(
+            fps["fused_sgd"], {compile_cache.LIBRARY_MEMBER: moe_bytes})
+        # (e) a leaseholder to kill
+        dead = serve("dead")
+        ttl = {"TPUJOB_ARTIFACT_LEASE_TTL": str(CACHE_LEASE_TTL_S)}
+        go, go_b, go_holder = ctx.Event(), ctx.Event(), ctx.Event()
+        t0 = time.perf_counter()
+        for i in range(3):
+            spawn(_cache_child, queue, "a%d" % i,
+                  _cache_env(os.path.join(tmp, "a%d" % i), fleet.url),
+                  CACHE_LIBRARIES, go, planted)
+        sgd = ("fused_sgd",)
+        spawn(_cache_child, queue, "b",
+              _cache_env(os.path.join(tmp, "a0"), ""), CACHE_LIBRARIES, go_b)
+        spawn(_cache_child, queue, "c",
+              _cache_env(os.path.join(tmp, "c"), poisoned.url), sgd, go,
+              planted)
+        spawn(_cache_child, queue, "d",
+              _cache_env(os.path.join(tmp, "d"), wrong.url), sgd, go)
+        spawn(_cache_child, queue, "e",
+              _cache_env(os.path.join(tmp, "e"), dead.url, **ttl), sgd, go)
+        holder = spawn(_lease_holder, queue,
+                       _cache_env(os.path.join(tmp, "holder"), dead.url,
+                                  **ttl), fps["fused_sgd"], go_holder)
+        _take(queue, "ready", 8, 300, procs)
+        spawn_s = time.perf_counter() - t0
+        go_holder.set()
+        held = _take(queue, "held", 1, 120, procs)["holder"]
+        holder.kill()             # SIGKILL: no release, no goodbye
+        holder.join(timeout=30)
+        killed_at = time.time()
+        go.set()
+        t_go = time.time()
+        rest = _take(queue, "done", 6, 600, procs)
+        cold = {t: rest.pop(t) for t in ("a0", "a1", "a2")}
+        cold_s = max(r["t_done"] for r in cold.values()) - t_go
+        # (b): a restart on (a)'s first directory, once (a) is done
+        go_b.set()
+        rest.update(_take(queue, "done", 1, 300, procs))
+        wave_s = time.perf_counter() - t0
+        rungs = {n: sorted(cold[t]["libraries"][n]["rung"] for t in cold)
+                 for n in CACHE_LIBRARIES}
+        counts_a = fleet.state.snapshot()
+        for n, r in rungs.items():
+            if r != ["built", "fleet", "fleet"]:
+                problems.append("(a) %s served %r across three processes, "
+                                "not built once and fleet twice" % (n, r))
+        if (counts_a["lease_grant"], counts_a["lease_release"]) != (4, 4) \
+                or fleet.state.leases_held():
+            problems.append("(a) the server granted %d leases, released %d "
+                            "and holds %d (expected 4, 4, 0)" % (
+                                counts_a["lease_grant"],
+                                counts_a["lease_release"],
+                                fleet.state.leases_held()))
+        for t in sorted(cold):
+            problems += _kernel_problems("(a) " + t, cold[t])
+        # the fleet rung's own fetch, timed here on the warm server
+        client = ArtifactStore(url=fleet.url)
+        fetch_s, sizes = {}, {}
+        for n in CACHE_LIBRARIES:
+            t = time.perf_counter()
+            members, _ = client.fetch(fps[n])
+            fetch_s[n] = time.perf_counter() - t
+            sizes[n] = len((members or {}).get(
+                compile_cache.LIBRARY_MEMBER, b""))
+
+        b = rest["b"]
+        if {n: r["rung"] for n, r in b["libraries"].items()} != \
+                dict.fromkeys(CACHE_LIBRARIES, "local") \
+                or b["block"]["compile_seconds"] != 0:
+            problems.append("(b) the warm restart served %r with %g s in "
+                            "nvcc" % ({n: r["rung"] for n, r in
+                                       b["libraries"].items()},
+                                      b["block"]["compile_seconds"]))
+        c = rest["c"]
+        # rejected by the digest at both of the ladder's fetches (before
+        # the lease and under it), never loaded
+        if c["store"].get("poisoned_remote", 0) != 2 \
+                or c["block"]["first_call_rejects"] \
+                or c["libraries"]["fused_sgd"]["rung"] != "built":
+            problems.append("(c) the poisoned bundle was not rejected by "
+                            "its digest (poisoned_remote %s, first-use "
+                            "rejects %s, fused_sgd %s)" % (
+                                c["store"].get("poisoned_remote", 0),
+                                c["block"]["first_call_rejects"],
+                                c["libraries"]["fused_sgd"]["rung"]))
+        d = rest["d"]
+        rec_d = d["libraries"]["fused_sgd"]
+        if "missing symbol" not in rec_d.get("rejected", "") \
+                or rec_d["rung"] != "built" \
+                or d["block"]["first_call_rejects"] != 1 \
+                or d["store"].get("poisoned_remote", 0) != 1:
+            problems.append("(d) the wrong library was not rejected at its "
+                            "first use and rebuilt: %r, rejects %d, "
+                            "poisoned_remote %s" % (
+                                rec_d, d["block"]["first_call_rejects"],
+                                d["store"].get("poisoned_remote", 0)))
+        e = rest["e"]
+        rec_e = e["libraries"]["fused_sgd"]
+        took = rec_e["fleet_s"]
+        if not held["granted"] or rec_e["rung"] != "built" \
+                or e["store"].get("lease_broken", 0) != 1 \
+                or e["store"].get("lease_timeout", 0) \
+                or e["store"].get("publishes_remote", 0) != 1 \
+                or not took <= CACHE_LEASE_TTL_S + CACHE_LEASE_MARGIN_S:
+            problems.append("(e) the dead holder's lease was not taken "
+                            "within %g s: holder %r, waiter %r, store %r"
+                            % (CACHE_LEASE_TTL_S + CACHE_LEASE_MARGIN_S,
+                               held, rec_e, e["store"]))
+        if dead.state.leases_held() or ArtifactStore(url=dead.url).fetch(
+                fps["fused_sgd"])[0] is None:
+            problems.append("(e) the waiter left a lease held or published "
+                            "nothing")
+        for t in ("b", "c", "d", "e"):
+            problems += _kernel_problems("(%s)" % t, rest[t])
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def per_rung(res: dict, key: str, rung: str) -> dict:
+        return {n: r[key] for t in sorted(res)
+                for n, r in res[t]["libraries"].items() if r["rung"] == rung}
+
+    launches = {name: sum(cold[t]["kernels"][name]["launches"]
+                          for t in cold)
+                for name in cold["a0"]["kernels"]}
+    out = {"phase": "compile_cache", "planted": planted or None,
+           "fingerprints": fps, "library_bytes": sizes,
+           "toolchain": compile_cache.toolchain_and_device(),
+           "cold_fleet": {
+               "rungs": rungs, "server": counts_a, "seconds": cold_s,
+               "nvcc_s": per_rung(cold, "compile_s", "built"),
+               "fleet_rung_s": per_rung(cold, "fleet_s", "fleet"),
+               "ladder_s": {t: cold[t]["ladder_s"] for t in sorted(cold)},
+               "kernels": {t: cold[t]["kernels"] for t in sorted(cold)}},
+           "fleet_fetch_s": fetch_s,
+           "warm_restart": {"rungs": {n: r["rung"] for n, r in
+                                      b["libraries"].items()},
+                            "load_s": {n: r["load_s"] for n, r in
+                                       b["libraries"].items()},
+                            "compile_seconds": b["block"]["compile_seconds"],
+                            "ladder_s": b["ladder_s"]},
+           "poisoned": {"store": c["store"],
+                        "fused_sgd": c["libraries"]["fused_sgd"]},
+           "wrong_library": {"store": d["store"], "fused_sgd": rec_d,
+                             "first_call_rejects":
+                                 d["block"]["first_call_rejects"]},
+           "dead_holder": {"lease_ttl_s": CACHE_LEASE_TTL_S,
+                           "held": held, "killed_at": killed_at,
+                           "waiter": rec_e, "store": e["store"]},
+           "seconds": {"spawn_to_ready": spawn_s, "cold_fleet": cold_s,
+                       "wave": wave_s},
+           "launches_cold_fleet": launches,
+           "kernels": {t: r["kernels"] for t, r in rest.items()}}
+    emit(out)
+    print("compile_cache: 8 processes ready in %.1f s; cold fleet %.1f s "
+          "from the start (nvcc %s s), fleet fetch %s s, warm load %s s, "
+          "(e) lease taken %.2f s into the waiter's fleet rung; the wave "
+          "%.1f s" % (
+              spawn_s, cold_s, {n: round(s, 2) for n, s in
+                                out["cold_fleet"]["nvcc_s"].items()},
+              {n: round(s, 4) for n, s in fetch_s.items()},
+              {n: round(s, 4) for n, s in
+               out["warm_restart"]["load_s"].items()},
+              took, wave_s), flush=True)
+    if problems:
+        fail("compile_cache: " + "; ".join(problems))
     return out
 
 
@@ -1340,6 +1846,27 @@ def _train_run(opt, total: int, ckpt_dir: str, make_batch=None,
     return rec, out, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def _flop_counters():
+    """``obs.hardware.StepFlopCounter`` noting each step it counts while
+    open: yields a list with one entry a counter made (a counter enters
+    itself again for each decomposition it counts)."""
+    from paddle_operator_tpu_torch.obs import hardware
+
+    entered, base = [], hardware.StepFlopCounter
+
+    class Noted(base):
+        def __init__(self):
+            super().__init__()
+            entered.append(1)
+
+    hardware.StepFlopCounter = Noted
+    try:
+        yield entered
+    finally:
+        hardware.StepFlopCounter = base
+
+
 def _train_profile(warm: int = 2, steps: int = 5) -> dict:
     """torch.profiler over ``steps`` train steps (fused_sgd, one device
     batch), and the step's FLOPs from FlopCounterMode."""
@@ -1381,6 +1908,13 @@ def phase_train(smi: str) -> dict:
     (c) (a) resumed from its step-10 checkpoint through restore_latest;
     then 20 steps on one fixed batch, and a profiled window.
 
+    The step-cost rung (``TPUJOB_COMPILE_CACHE_DIR`` names an empty
+    directory for the phase: a step cost persists only there): run (a)
+    counts ResNet-50's first step and saves its cost; run (c) must read
+    it back (``result["compile_cache"]["step_cost"] == ["cache"]``), its
+    flops_per_step bit for bit run (a)'s, and its first step must run
+    outside ``StepFlopCounter``.
+
     Run (a) also carries the runner's observability (``metrics_port=0``,
     ``TPUJOB_PROFILE_DIR`` with the window OBS_WINDOW): its ``/metrics``
     scraped from a thread while it trains, and the gates of
@@ -1401,25 +1935,27 @@ def phase_train(smi: str) -> dict:
         prof_dirs = {k: os.path.join(tmp, "profile_" + k) for k in "af"}
         optim.multi_tensor_sgd.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        with _environ(TPUJOB_PROFILE_DIR=prof_dirs["a"],
-                      TPUJOB_PROFILE_STEPS=OBS_WINDOW), \
-                _MetricsScraper() as scraper:
-            rec_a, out_a, wall_a = _train_run(
-                resnet_optimizer("fused_sgd", 30), 30, dirs["a"],
-                metrics_port=0)
-        launches_a = optim.multi_tensor_sgd.launches
-        peak_mem = torch.cuda.max_memory_allocated()
-        optim.multi_tensor_sgd.launches = 0
-        rec_b, out_b, wall_b = _train_run(resnet_optimizer("sgd", 30), 30,
-                                          dirs["b"])
-        launches_b = optim.multi_tensor_sgd.launches
-        os.makedirs(dirs["c"])
-        shutil.copytree(os.path.join(dirs["a"], "step_%012d" % 10),
-                        os.path.join(dirs["c"], "step_%012d" % 10))
-        optim.multi_tensor_sgd.launches = 0
-        rec_c, out_c, _ = _train_run(resnet_optimizer("fused_sgd", 30), 30,
-                                     dirs["c"])
-        launches_c = optim.multi_tensor_sgd.launches
+        with _environ(TPUJOB_COMPILE_CACHE_DIR=os.path.join(tmp, "cost")):
+            with _environ(TPUJOB_PROFILE_DIR=prof_dirs["a"],
+                          TPUJOB_PROFILE_STEPS=OBS_WINDOW), \
+                    _MetricsScraper() as scraper:
+                rec_a, out_a, wall_a = _train_run(
+                    resnet_optimizer("fused_sgd", 30), 30, dirs["a"],
+                    metrics_port=0)
+            launches_a = optim.multi_tensor_sgd.launches
+            peak_mem = torch.cuda.max_memory_allocated()
+            optim.multi_tensor_sgd.launches = 0
+            rec_b, out_b, wall_b = _train_run(resnet_optimizer("sgd", 30),
+                                              30, dirs["b"])
+            launches_b = optim.multi_tensor_sgd.launches
+            os.makedirs(dirs["c"])
+            shutil.copytree(os.path.join(dirs["a"], "step_%012d" % 10),
+                            os.path.join(dirs["c"], "step_%012d" % 10))
+            optim.multi_tensor_sgd.launches = 0
+            with _flop_counters() as counted_c:
+                rec_c, out_c, _ = _train_run(
+                    resnet_optimizer("fused_sgd", 30), 30, dirs["c"])
+            launches_c = optim.multi_tensor_sgd.launches
         fixed = resnet.synthetic_batch(
             torch.Generator(device=DEVICE).manual_seed(1), BATCH, IMAGE,
             CLASSES)
@@ -1513,6 +2049,13 @@ def phase_train(smi: str) -> dict:
         "launches": {"fused_sgd": launches_a, "sgd": launches_b,
                      "resumed": launches_c},
         "resume_steps": out_c.get("resume_steps"),
+        "step_cost": {"run_a": out_a["compile_cache"]["step_cost"],
+                      "run_c": out_c["compile_cache"]["step_cost"],
+                      "run_c_counted_steps": len(counted_c),
+                      "flops_per_step": {
+                          "run_a": blk["flops_per_step"],
+                          "run_c": out_c["hardware"]["flops_per_step"]}},
+        "compile_cache": out_c["compile_cache"],
         "timing_steps_11_30": times,
         "wall_s": {"fused_sgd": wall_a, "sgd": wall_b},
         "max_memory_allocated": peak_mem,
@@ -1588,6 +2131,16 @@ def phase_train(smi: str) -> dict:
     if out_c.get("resume_steps") != [10]:
         problems.append("the resumed run restored %r, not step 10"
                         % out_c.get("resume_steps"))
+    # the step-cost rung: (a) saved ResNet-50's cost, (c) reads it back
+    if out_c["compile_cache"]["step_cost"] != ["cache"] or counted_c:
+        problems.append("the resumed run's step cost came from %r, with %d "
+                        "counted steps (expected the cache and none)"
+                        % (out_c["compile_cache"]["step_cost"],
+                           len(counted_c)))
+    if out_c["hardware"]["flops_per_step"] != blk["flops_per_step"]:
+        problems.append("the resumed run's flops_per_step %r is not run "
+                        "(a)'s %r" % (out_c["hardware"]["flops_per_step"],
+                                      blk["flops_per_step"]))
     if (launches_a, launches_b, launches_c) != (30, 0, 20):
         problems.append("fused_sgd launches %d/%d/%d, expected 30/0/20"
                         % (launches_a, launches_b, launches_c))
@@ -1620,9 +2173,13 @@ GPT_GRAD_RTOL = 0.05
 #: gradient gate must reject: dK without its softmax scale, and dQ moved
 #: by one 64-row tile along the sequence (a tile index off by one)
 PLANTED_BACKWARD = ("dk_unscaled", "dq_tile_shifted")
-#: the planted faults that the loss gate must reject too: the 20 losses
+#: the planted faults that the loss gate must reject too: the losses
 #: barely depend on dQ, so a shifted dQ tile stays near the gate
 LOSS_GATE_SEES = ("dk_unscaled",)
+#: steps of each planted fault's run: on an H100 80GB HBM3 at 700 W
+#: dk_unscaled parted from the einsum run by 3.4e-5 at step 1 and by
+#: 9.9e-5 at step 3, against the loss gate's 2e-5
+GPT_PLANTED_STEPS = 5
 
 
 @contextlib.contextmanager
@@ -1679,12 +2236,13 @@ def _recorded_run(job, ckpt_dir: str, make_batch=None, every: int = 10):
     return rec, out, time.perf_counter() - t0
 
 
-def _gpt_run(attn_impl: str, ckpt_dir: str, make_batch=None):
-    """examples/train_gpt.py's TrainJob for GPT_STEPS steps, checkpoints
+def _gpt_run(attn_impl: str, ckpt_dir: str, make_batch=None,
+             steps: int = GPT_STEPS):
+    """examples/train_gpt.py's TrainJob for ``steps`` steps, checkpoints
     every 10 steps; also the flash launches of the run."""
     launches = _zero(attention.flash_attention.launches)
     rec, out, wall = _recorded_run(
-        train_gpt.make_job(_gpt_env(), attn_impl=attn_impl), ckpt_dir,
+        train_gpt.make_job(_gpt_env(steps), attn_impl=attn_impl), ckpt_dir,
         make_batch)
     return rec, out, wall, dict(launches)
 
@@ -1847,12 +2405,12 @@ def _deterministic():
     atomic otherwise), without filling fresh memory, restored after."""
     saved = (torch.are_deterministic_algorithms_enabled(),
              torch.utils.deterministic.fill_uninitialized_memory)
-    torch.use_deterministic_algorithms(True)
+    deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(saved[0])
+        deterministic_algorithms(saved[0])
         torch.utils.deterministic.fill_uninitialized_memory = saved[1]
 
 
@@ -1867,7 +2425,8 @@ def phase_train_gpt(smi: str) -> dict:
         every 10 steps;
     (b) the same 20 steps with attn_impl="einsum";
     (c) (a) resumed from its step-10 checkpoint;
-    (d) (a) under each planted backward fault, without checkpoints;
+    (d) (a)'s first GPT_PLANTED_STEPS steps under each planted backward
+        fault, without checkpoints;
     then 20 steps on one fixed batch and a profiled window. Deterministic
     algorithms are on throughout (the embedding's index backward is
     atomic otherwise), so (c) must reproduce (a) bit for bit."""
@@ -1890,7 +2449,8 @@ def phase_train_gpt(smi: str) -> dict:
         planted_losses = {}
         for fault in PLANTED_BACKWARD:
             with _planted_backward(fault):
-                planted_losses[fault] = _gpt_run("auto", "")[0].host_losses()
+                planted_losses[fault] = _gpt_run(
+                    "auto", "", steps=GPT_PLANTED_STEPS)[0].host_losses()
         fixed = gpt.synthetic_batch(
             torch.Generator(device=DEVICE).manual_seed(1), GPT_BATCH,
             GPT_SEQ, cfg["vocab_size"])
@@ -2525,7 +3085,13 @@ def phase_train_gpt_moe(smi: str) -> dict:
     (d) 5 steps of (a) under each planted fault;
     then 10 steps on one fixed batch and a profiled window. The kernels
     are bitwise equal to their plain versions and the algorithms are
-    deterministic, so (a), (p) and (c) must agree bit for bit."""
+    deterministic, so (a), (p) and (c) must agree bit for bit.
+
+    The step-cost rung across the MoE paths (``TPUJOB_COMPILE_CACHE_DIR``
+    names an empty directory for (a) to (c)): (p) and (b) run (a)'s job
+    with other launchers and with TPUJOB_MOE_FUSED=0, which the step's
+    key holds, so each counts its own first step; (c) resumes (a)'s step
+    and reads its cost, flops_per_step bit for bit (a)'s."""
     cfg = dict(gpt.BASE_CONFIG, moe_experts=MOE_EXPERTS, moe_every=2)
     per_step = moe_launches_per_step(cfg, remat=True)
     with _deterministic(), tempfile.TemporaryDirectory(
@@ -2546,20 +3112,21 @@ def phase_train_gpt_moe(smi: str) -> dict:
                    for ref in ("dense", "plain")}
         del routes
         torch.cuda.reset_peak_memory_stats()
-        rec_a, out_a, wall_a, launches_a, paths_a = _gpt_moe_run(
-            "kernels", dirs["a"])
-        peak_a = torch.cuda.max_memory_allocated()
-        rec_p, _, _, launches_p, _ = _gpt_moe_run("plain", "")
-        torch.cuda.reset_peak_memory_stats()
-        rec_b, _, wall_b, launches_b, _ = _gpt_moe_run("dense", "")
-        peak_b = torch.cuda.max_memory_allocated()
-        saved = "step_%012d" % MOE_SAVE_AT
-        os.makedirs(dirs["c"])
-        shutil.copytree(os.path.join(dirs["a"], saved),
-                        os.path.join(dirs["c"], saved),
-                        copy_function=os.link)
-        rec_c, out_c, _, launches_c, paths_c = _gpt_moe_run(
-            "kernels", dirs["c"], every=10 * MOE_STEPS)
+        with _environ(TPUJOB_COMPILE_CACHE_DIR=os.path.join(tmp, "cost")):
+            rec_a, out_a, wall_a, launches_a, paths_a = _gpt_moe_run(
+                "kernels", dirs["a"])
+            peak_a = torch.cuda.max_memory_allocated()
+            rec_p, out_p, _, launches_p, _ = _gpt_moe_run("plain", "")
+            torch.cuda.reset_peak_memory_stats()
+            rec_b, out_b, wall_b, launches_b, _ = _gpt_moe_run("dense", "")
+            peak_b = torch.cuda.max_memory_allocated()
+            saved = "step_%012d" % MOE_SAVE_AT
+            os.makedirs(dirs["c"])
+            shutil.copytree(os.path.join(dirs["a"], saved),
+                            os.path.join(dirs["c"], saved),
+                            copy_function=os.link)
+            rec_c, out_c, _, launches_c, paths_c = _gpt_moe_run(
+                "kernels", dirs["c"], every=10 * MOE_STEPS)
         planted_losses = {
             fault: _gpt_moe_run("kernels", "", fault=fault,
                                 total=MOE_PLANTED_STEPS)[0].host_losses()
@@ -2591,6 +3158,10 @@ def phase_train_gpt_moe(smi: str) -> dict:
     model_flops = profile_out["unreported_flops_per_step"] + \
         _attention_flops(cfg)
     expected = {k: n * MOE_STEPS for k, n in per_step.items()}
+    runs = {"kernels": out_a, "plain": out_p, "dense": out_b,
+            "resumed": out_c}
+    step_cost = {k: r["compile_cache"]["step_cost"] for k, r in runs.items()}
+    flops = {k: r["hardware"]["flops_per_step"] for k, r in runs.items()}
     out = {
         "phase": "train_gpt_moe", "card": smi,
         "config": {"model": "gpt BASE_CONFIG + moe_experts=8, moe_every=2",
@@ -2625,6 +3196,7 @@ def phase_train_gpt_moe(smi: str) -> dict:
                          cfg, remat=True)},
         "path_launches": {"kernels": paths_a, "resumed": paths_c},
         "resume_steps": out_c.get("resume_steps"),
+        "step_cost": step_cost, "flops_per_step": flops,
         "step_ms_steps_2_4": {"kernels": fused_ms, "dense": dense_ms},
         "step_ms_median": 1e3 * median_s,
         "dense_step_ms_median": statistics.median(dense_ms),
@@ -2694,6 +3266,13 @@ def phase_train_gpt_moe(smi: str) -> dict:
     if out_c.get("resume_steps") != [MOE_SAVE_AT]:
         problems.append("the resumed run restored %r, not step %d"
                         % (out_c.get("resume_steps"), MOE_SAVE_AT))
+    if step_cost != {"kernels": ["counted"], "plain": ["counted"],
+                     "dense": ["counted"], "resumed": ["cache"]} \
+            or flops["resumed"] != flops["kernels"]:
+        problems.append("the step costs came from %r with flops_per_step "
+                        "%r (expected the plain and dense runs counted, "
+                        "the resumed run (a)'s from the cache)"
+                        % (step_cost, flops))
     if launches_a != expected:
         problems.append("MoE launches %r, expected %r"
                         % (launches_a, expected))
@@ -3118,8 +3697,9 @@ def phase_train_dp(smi: str, train_losses: list) -> dict:
         within DP_GPT_RTOL of one process, the flash launches of a rank
         a step (fwd twice a layer under remat, dq and dkv once).
 
-    The two workers share one card: their step times are a correctness
-    run's, not a multi-GPU rate."""
+    The window's process, the two workers and this process's references
+    run at the same time. The two workers share one card: their step
+    times are a correctness run's, not a multi-GPU rate."""
     import torch.distributed as dist
 
     cudnn = torch.backends.cudnn
@@ -3138,10 +3718,15 @@ def phase_train_dp(smi: str, train_losses: list) -> dict:
             launches_a = optim.multi_tensor_sgd.launches
         finally:
             dist.destroy_process_group()
-        nccl = _nccl_window()
-        one = {"resnet50": dp_check.card_run("resnet50", DP_RESNET_STEPS),
-               "gpt": dp_check.card_run("gpt2_2layers", DP_GPT_STEPS)}
-        workers = _dp_workers(os.path.join(tmp, "workers"))
+        # the profiled window's fresh process and the two workers run at
+        # once, while this process runs the one-process references
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            window = pool.submit(_nccl_window)
+            running = pool.submit(_dp_workers, os.path.join(tmp, "workers"))
+            one = {"resnet50": dp_check.card_run("resnet50",
+                                                 DP_RESNET_STEPS),
+                   "gpt": dp_check.card_run("gpt2_2layers", DP_GPT_STEPS)}
+            nccl, workers = window.result(), running.result()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         cudnn.deterministic, cudnn.benchmark = saved
@@ -3237,7 +3822,7 @@ SP_FLASH_CASES = tuple(
        for dtype in ("bfloat16", "float32")])
 #: (b) GPT-2 small at full width and depth with TPUJOB_SP=4, and (c)
 #: dp2 x sp2 at 2 layers: steps of each run
-SP_STEPS, SP_DPSP_STEPS = 3, 2
+SP_STEPS, SP_DPSP_STEPS = 2, 2
 #: |loss(sp workers) - loss(one process)| / loss allowed at each step:
 #: train_gpt's einsum-against-flash class. The runs differ in rounding
 #: only: each ring hop's attention output is rounded to bf16 before the
@@ -3257,26 +3842,26 @@ def _sp_flash_per_step(layers: int, sp: int) -> dict:
             "flash_dkv": layers * sp}
 
 
-def _sp_scenarios(grad_ref: str) -> list:
-    """The phase's scenarios, in one four-worker world: (a) each
-    attention function in bf16 and fp32, compared in the workers; (b)
-    step 0's GPT-2 small sp4 gradients against one process's (saved at
-    ``grad_ref``), sound and under each planted fault, and the sp4 run
-    (profiled); (c) the dp2 x sp2 run."""
-    out = [{"kind": "attn", "name": "attn_%s_%s" % (fn, dtype),
-            "fn": fn, "impl": "auto", "dtype": dtype,
-            "shape": list(SP_ATTN_SHAPE), "causal": True, "seed": 0,
-            "mesh": {"sp": SP_WORKERS}, "device": DEVICE, "compare": True}
-           for fn in ("ring", "ulysses") for dtype in ("bfloat16",
-                                                      "float32")]
-    for fault in ("",) + dp_check.SP_FAULTS:
-        out.append({"kind": "grads", "name": "grads_" + (fault or "sound"),
-                    "model": "gpt2_sp4", "ref": grad_ref, "fault": fault})
-    out.append({"kind": "run", "name": "gpt2_sp4", "model": "gpt2_sp4",
-                "steps": SP_STEPS, "profile": True})
-    out.append({"kind": "run", "name": "gpt2_2layers_dp2_sp2",
-                "model": "gpt2_2layers_dp2_sp2", "steps": SP_DPSP_STEPS})
-    return out
+def _sp_scenarios(grad_ref: str) -> tuple:
+    """The phase's scenarios, in two four-worker worlds: the first (a)
+    each attention function in bf16 and fp32, compared in the workers,
+    and (b)'s sp4 run (profiled); the second (b)'s step 0 GPT-2 small
+    sp4 gradients against one process's (saved at ``grad_ref``), sound
+    and under each planted fault, and (c) the dp2 x sp2 run."""
+    attn = [{"kind": "attn", "name": "attn_%s_%s" % (fn, dtype),
+             "fn": fn, "impl": "auto", "dtype": dtype,
+             "shape": list(SP_ATTN_SHAPE), "causal": True, "seed": 0,
+             "mesh": {"sp": SP_WORKERS}, "device": DEVICE, "compare": True}
+            for fn in ("ring", "ulysses") for dtype in ("bfloat16",
+                                                       "float32")]
+    grads = [{"kind": "grads", "name": "grads_" + (fault or "sound"),
+              "model": "gpt2_sp4", "ref": grad_ref, "fault": fault}
+             for fault in ("",) + dp_check.SP_FAULTS]
+    return (attn + [{"kind": "run", "name": "gpt2_sp4", "model": "gpt2_sp4",
+                     "steps": SP_STEPS, "profile": True}],
+            grads + [{"kind": "run", "name": "gpt2_2layers_dp2_sp2",
+                      "model": "gpt2_2layers_dp2_sp2",
+                      "steps": SP_DPSP_STEPS}])
 
 
 def _sp_attn_problems(lines: list) -> list:
@@ -3327,10 +3912,11 @@ def phase_train_sp(smi: str) -> dict:
     """Sequence parallelism through the port's sp path (an sp mesh axis,
     ring attention on the flash kernels' LSE entry, the sequence block in
     the loss, the gradient sum over sp), four workers started through
-    ``python -m paddle_operator_tpu_torch.launch`` in one world: over
-    NCCL, one card a worker, where the machine has four cards, else on
-    this one card over gloo (NCCL refuses two ranks on one device; phase
-    train_dp prints its words). The kernels phase holds B2 against its
+    ``python -m paddle_operator_tpu_torch.launch`` in each of two worlds
+    run at once (:func:`_sp_scenarios`): over NCCL, one card a worker,
+    where the machine has four cards, else on this one card over gloo
+    (NCCL refuses two ranks on one device; phase train_dp prints its
+    words). The kernels phase holds B2 against its
     plain versions at every shape this phase gives it (``SP_FLASH_CASES``):
 
     (a) ring attention (every hop on the kernels) and Ulysses attention
@@ -3370,10 +3956,19 @@ def phase_train_sp(smi: str) -> dict:
         grad_ref = os.path.join(tmp, "grads.pt")
         torch.save(dp_check.step0_grads("gpt2_seq4096"), grad_ref)
         torch.cuda.empty_cache()
-        lines = dp_check.launch_workers(
-            {"out": os.path.join(tmp, "workers"),
-             "scenarios": _sp_scenarios(grad_ref)},
-            world=SP_WORKERS, backend=backend, timeout=900)
+
+        def world_lines(at: int, scenarios: list) -> list:
+            return dp_check.launch_workers(
+                {"out": os.path.join(tmp, "workers%d" % at),
+                 "scenarios": scenarios},
+                world=SP_WORKERS, backend=backend, timeout=900)
+
+        # the two worlds run at once (their workers share the host and
+        # the card): one world's start overlaps the other's steps
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            lines = [rank_lines for got in list(pool.map(
+                world_lines, (0, 1), _sp_scenarios(grad_ref)))
+                for rank_lines in got]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_name: dict = {}
@@ -3823,11 +4418,11 @@ ELASTIC_FAULT_GATES = {"resnet_stale_shard": "batch_block",
 def _elastic_worlds(tmp: str, endpoint: str) -> dict:
     """Run ELASTIC_RUNS in two worlds of workers started through
     ``python -m paddle_operator_tpu_torch.launch`` with the elastic env:
-    four for the ResNet runs, two for the GPT runs; NCCL where the machine
-    has a card a worker, else gloo on this card. Returns the lines by
-    run."""
-    lines = {}
-    for world in (4, 2):
+    four for the ResNet runs, two for the GPT runs, both at once (their
+    workers share the host and the card); NCCL where the machine has a
+    card a worker, else gloo on this card. Returns the lines by run."""
+
+    def world_lines(world: int) -> dict:
         scenarios, triggers = [], []
         for name, (w, model, steps, np1, after, fault) in \
                 ELASTIC_RUNS.items():
@@ -3842,12 +4437,17 @@ def _elastic_worlds(tmp: str, endpoint: str) -> dict:
             if after is not None:
                 triggers.append(elastic_check.Trigger(
                     "chip-" + name, ckpt, after, np=np1))
-        torch.cuda.empty_cache()
-        lines.update(elastic_check.launch(
+        return elastic_check.launch(
             {"out": os.path.join(tmp, "w%d" % world),
              "scenarios": scenarios}, world, endpoint, triggers,
             backend="nccl" if torch.cuda.device_count() >= world
-            else "gloo", timeout=600))
+            else "gloo", timeout=600)
+
+    torch.cuda.empty_cache()
+    lines = {}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for got in list(pool.map(world_lines, (4, 2))):
+            lines.update(got)
     return lines
 
 
@@ -4136,7 +4736,7 @@ def phase_train_elastic(smi: str) -> dict:
 MOE_EP_WORKERS = 4
 #: steps of the 12-layer runs (the first of train_gpt_moe's run (a)'s 10),
 #: of (c)'s sp run, and of the 2-layer dp2 x ep2 runs (sound and faults)
-MOE_EP_STEPS, MOE_EP_SP_STEPS, MOE_EP_SHORT_STEPS = 5, 5, 2
+MOE_EP_STEPS, MOE_EP_SP_STEPS, MOE_EP_SHORT_STEPS = 3, 3, 2
 #: |loss(workers) - loss(one process)| / loss allowed at each step, and
 #: between (a) and (b): the class of ``moe_check``'s readings (PERF.md
 #: §6, PR 13). Adamw's first steps move each parameter by about lr times
@@ -4212,12 +4812,12 @@ def _moe_rank_case(first: int, count: int, expert0: int,
                          & (case["pos"][rows] < case["capacity"])).sum())}
 
 
-def _moe_ep_scenarios(refs: dict) -> list:
-    """The phase's runs in one four-worker world: each of
-    ``moe_check.CARD_RUNS`` sound, then the planted faults on the 2-layer
-    dp2 x ep2 run; every run with its one process's step-0 routing and
-    gradients (``refs``)."""
-    out = []
+def _moe_ep_scenarios(refs: dict) -> tuple:
+    """The phase's runs in two four-worker worlds: the 12-layer runs of
+    ``moe_check.CARD_RUNS`` in the first, the 2-layer runs sound and the
+    planted faults on the 2-layer dp2 x ep2 run in the second; every run
+    with its one process's step-0 routing and gradients (``refs``)."""
+    out: tuple = ([], [])
     for run, steps, fault in (
             ("dp4", MOE_EP_STEPS, ""), ("dp2_ep2", MOE_EP_STEPS, ""),
             ("sp2_2layers", MOE_EP_SP_STEPS, ""),
@@ -4225,10 +4825,10 @@ def _moe_ep_scenarios(refs: dict) -> list:
             ("dp2_ep2_2layers", MOE_EP_SHORT_STEPS, f)
             for f in moe_check.FAULTS):
         ref = refs[moe_check.ONE_PROCESS[run]]
-        out.append({"kind": "card", "name": run + ("_" + fault if fault
-                                                   else ""),
-                    "run": run, "steps": steps, "fault": fault,
-                    "routes_ref": ref["routes"], "grads_ref": ref["grads"]})
+        out[moe_check.ONE_PROCESS[run] != "12layers"].append({
+            "kind": "card", "name": run + ("_" + fault if fault else ""),
+            "run": run, "steps": steps, "fault": fault,
+            "routes_ref": ref["routes"], "grads_ref": ref["grads"]})
     return out
 
 
@@ -4309,7 +4909,8 @@ def phase_train_moe_ep(smi: str, one_12layers: list = None) -> dict:
     TPUJOB_MOE_EXPERTS=8 and TPUJOB_MOE_FUSED=1: 16 x 1024, adamw,
     remat, grad clip 1.0, the first steps of train_gpt_moe's 10-step
     schedule, deterministic algorithms), four workers started through
-    ``python -m paddle_operator_tpu_torch.launch`` in one world (NCCL, a
+    ``python -m paddle_operator_tpu_torch.launch`` in each of two worlds
+    run at once, (a) and (b) in one, (c) and (d) in the other (NCCL, a
     card each, on a machine of four cards; else gloo on this card):
 
     (a) dp4 at 12 layers (the example's own path at four workers, experts
@@ -4350,10 +4951,19 @@ def phase_train_moe_ep(smi: str, one_12layers: list = None) -> dict:
                "2layers": refs["2layers"]["losses"]}
         torch.cuda.empty_cache()
         t_world = time.perf_counter()
-        lines = moe_check.launch(
-            {"out": os.path.join(tmp, "workers"),
-             "scenarios": _moe_ep_scenarios(refs)},
-            world=MOE_EP_WORKERS, backend=backend, timeout=1100)
+
+        def world_lines(at: int, scenarios: list) -> list:
+            return moe_check.launch(
+                {"out": os.path.join(tmp, "workers%d" % at),
+                 "scenarios": scenarios},
+                world=MOE_EP_WORKERS, backend=backend, timeout=1100)
+
+        # the two worlds run at once (their workers share the host and
+        # the card): one world's start overlaps the other's steps
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            lines = [rank_lines for got in list(pool.map(
+                world_lines, (0, 1), _moe_ep_scenarios(refs)))
+                for rank_lines in got]
         world_s = time.perf_counter() - t_world
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4907,7 +5517,8 @@ def phase_train_tp(smi: str, gpt_losses: list = None,
     gate (TP_FAULTS) must reject. The workers start through ``python -m
     paddle_operator_tpu_torch.launch``; NCCL a card each where the
     machine has a card a worker, else gloo on this card (a correctness
-    run, not a rate). Gates: :func:`_tp_problems`. Printed: the tp
+    run, not a rate); the world of two and the world of four run at the
+    same time. Gates: :func:`_tp_problems`. Printed: the tp
     collectives' count, bytes and host seconds a step, step ms a rank,
     peak GB a rank and the phase's seconds."""
     t0 = time.perf_counter()
@@ -4925,15 +5536,23 @@ def phase_train_tp(smi: str, gpt_losses: list = None,
         torch.cuda.empty_cache()
         t_world = time.perf_counter()
         for world in (2, 4):
-            runs = [r for r, spec in tp_check.CARD_RUNS.items()
-                    if spec[3] == world]
             backends[world] = "nccl" if torch.cuda.device_count() >= world \
                 else "gloo"
-            for rank_lines in tp_check.launch(
-                    {"out": os.path.join(tmp, "world%d" % world),
-                     "scenarios": _tp_scenarios(runs, grads)},
-                    world=world, backend=backends[world], timeout=900):
-                lines += rank_lines
+
+        def world_lines(world: int) -> list:
+            runs = [r for r, spec in tp_check.CARD_RUNS.items()
+                    if spec[3] == world]
+            return tp_check.launch(
+                {"out": os.path.join(tmp, "world%d" % world),
+                 "scenarios": _tp_scenarios(runs, grads)},
+                world=world, backend=backends[world], timeout=900)
+
+        # the two worlds run at once (their workers share the host and
+        # the card): one world's start overlaps the other's steps
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for got in list(pool.map(world_lines, (2, 4))):
+                for rank_lines in got:
+                    lines += rank_lines
         world_s = time.perf_counter() - t_world
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5488,6 +6107,8 @@ def main() -> int:
     smi = env["nvidia_smi"]
     phase("build", phase_build)
     kernels = phase("kernels", phase_kernels, hbm_rate(env["device"]))
+    cache = phase("compile_cache", phase_compile_cache)
+    cache_launches = cache["launches_cold_fleet"]
     serve = phase("serve", phase_serve, smi)
     train = phase("train", phase_train, smi)
     train_gpt_out = phase("train_gpt", phase_train_gpt, smi)
@@ -5552,7 +6173,8 @@ def main() -> int:
             "launches": train_gpt_out["launches"]["flash"][key]
             + elastic_launches["flash_" + key]
             + moe_ep_launches["flash_" + key] + tp_launches["flash_" + key]
-            + pp_launches["flash_" + key] + hybrid_launches["flash_" + key],
+            + pp_launches["flash_" + key] + hybrid_launches["flash_" + key]
+            + cache_launches[name],
             "max_abs_err": max(c["errors"][o]["max_abs_err"]
                                for c in cases for o in outputs),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -5565,7 +6187,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": MOE_SOURCE,
             "replaces": replaces,
             "launches": moe_out["launches"]["kernels"][key]
-            + moe_ep_launches[key] + hybrid_launches[key],
+            + moe_ep_launches[key] + hybrid_launches[key]
+            + cache_launches[name],
             "max_abs_err": max(r["max_abs_err"]
                                for case in kernels["moe"]["checks"].values()
                                for n, r in case.items()
@@ -5610,11 +6233,13 @@ def main() -> int:
           "hybrid_launches_per_rank": {
               name: hybrid_out["runs"][name]["launches"]
               for name in hybrid_check.CARD_RUNS},
-          "train_hybrid_seconds": hybrid_out["seconds"]})
+          "train_hybrid_seconds": hybrid_out["seconds"],
+          "compile_cache_launches_cold_fleet": cache_launches})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
-        "launches": serve["kernel_launches"],
+        "launches": serve["kernel_launches"]
+        + cache_launches["paged_decode_attention"],
         "max_abs_err": max(s["errors"]["max_abs_err"] for s in paged_shapes
                            if s["q_dtype"] == str(torch.float32)),
         "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
@@ -5624,7 +6249,8 @@ def main() -> int:
         "replaces": SGD_REPLACES,
         "launches": train["launches"]["fused_sgd"]
         + elastic_launches["fused_sgd"]
-        + migrate_out["launches"]["fused_sgd"] + tp_launches["fused_sgd"],
+        + migrate_out["launches"]["fused_sgd"] + tp_launches["fused_sgd"]
+        + cache_launches["fused_sgd"],
         "max_abs_err": sgd["max_abs_err"], "ms": sgd["kernel_ms"],
         "plain_ms": sgd["plain_ms"], "bound_ms": sgd["bound_ms"],
         "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"]}]

@@ -1,6 +1,5 @@
 """ArtifactServer: the operator-served HTTP tier of the artifact store,
-the port's copy of ``paddle_operator_tpu/artifacts/server.py`` less its
-compile-lease endpoints.
+the port's copy of ``paddle_operator_tpu/artifacts/server.py``.
 
 An embedded ``ThreadingHTTPServer``, like the membership server
 (:mod:`..elastic.server`): standalone
@@ -18,8 +17,16 @@ Endpoints (JSON except the bundle bodies):
   answered 400 and counted, and never reaches a peer. Members MERGE into
   an existing bundle with the atomic tmp + replace discipline. A body
   over ``MAX_BUNDLE_BYTES`` is refused with 400.
+* ``POST /v1/lease`` ``{"fp","holder","ttl"}``: compile-lease acquire,
+  at most one live holder per fingerprint; an expired lease goes to the
+  next acquirer (a dead leaseholder costs its TTL, never a wedge), and a
+  re-acquire by the same holder refreshes the deadline.
+* ``GET  /v1/lease?fp=F``: ``{"fp": F, "state": "held"|"free"}``.
+* ``DELETE /v1/lease?fp=F&holder=H``: release (holder-checked).
 
-The request counters live in :class:`_ServerState` under one lock.
+The wire is the reference's: the same JSON bodies and codes. The lease
+table and the request counters live in :class:`_ServerState` under one
+lock.
 """
 
 from __future__ import annotations
@@ -29,9 +36,10 @@ import json
 import logging
 import os
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..obs.exposition import http_respond
 from . import bundle
@@ -40,14 +48,17 @@ from .bundle import PoisonedArtifactError
 log = logging.getLogger("tpujob.artifacts.server")
 
 _OPS = ("fetch_hit", "fetch_miss", "publish", "publish_rejected",
-        "poisoned_quarantined")
+        "poisoned_quarantined", "lease_grant", "lease_deny",
+        "lease_release")
 
 
 class _ServerState:
-    """The request counters, under one lock."""
+    """The lease table and the request counters, under one lock."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
+        # fingerprint -> (holder, monotonic deadline)
+        self.leases: Dict[str, Tuple[str, float]] = {}
         self.counts: Dict[str, int] = {op: 0 for op in _OPS}
 
     def bump(self, op: str) -> None:
@@ -57,6 +68,43 @@ class _ServerState:
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self.counts)
+
+    def lease_acquire(self, fp: str, holder: str,
+                      ttl: float) -> Tuple[bool, bool]:
+        """(granted, broke): ``broke`` marks an expired lease of a DEAD
+        holder being taken over, told to the client so that the
+        ``broken`` outcome counts on the remote tier too."""
+        now = time.monotonic()
+        with self._lock:
+            cur = self.leases.get(fp)
+            if cur is not None and cur[1] > now and cur[0] != holder:
+                return False, False
+            broke = cur is not None and cur[1] <= now and cur[0] != holder
+            self.leases[fp] = (holder, now + max(1.0, ttl))
+            return True, broke
+
+    def lease_state(self, fp: str) -> str:
+        now = time.monotonic()
+        with self._lock:
+            cur = self.leases.get(fp)
+            if cur is None or cur[1] <= now:
+                return "free"
+            return "held"
+
+    def lease_release(self, fp: str, holder: str) -> bool:
+        with self._lock:
+            cur = self.leases.get(fp)
+            if cur is not None and cur[0] == holder:
+                del self.leases[fp]
+                return True
+            return False
+
+    def leases_held(self) -> int:
+        """Leases whose deadline has not passed."""
+        now = time.monotonic()
+        with self._lock:
+            return sum(1 for _, deadline in self.leases.values()
+                       if deadline > now)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -94,6 +142,10 @@ class _Handler(BaseHTTPRequestHandler):
             srv.state.bump("fetch_hit")
             return http_respond(self, 200, data,
                                 ctype="application/octet-stream")
+        if path == "/v1/lease":
+            fp = self._params().get("fp", "")
+            return self._json(200, {"fp": fp,
+                                    "state": srv.state.lease_state(fp)})
         return self._json(404, {"error": "not found"})
 
     def do_PUT(self) -> None:  # noqa: N802
@@ -124,6 +176,34 @@ class _Handler(BaseHTTPRequestHandler):
             return self._json(500, {"error": "store unwritable"})
         srv.state.bump("publish")
         return self._json(200, {"fp": fp, "members": members})
+
+    def do_POST(self) -> None:  # noqa: N802
+        path = urllib.parse.urlparse(self.path).path
+        srv = self.server_ref
+        if path != "/v1/lease":
+            return self._json(404, {"error": "not found"})
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(max(0, length)) or b"{}")
+            fp, holder = body["fp"], body["holder"]
+            ttl = float(body.get("ttl", 300.0))
+        except (ValueError, KeyError, TypeError):
+            return self._json(400, {"error": "fp and holder required"})
+        granted, broke = srv.state.lease_acquire(fp, holder, ttl)
+        srv.state.bump("lease_grant" if granted else "lease_deny")
+        return self._json(200, {"granted": granted, "broke": broke,
+                                "fp": fp})
+
+    def do_DELETE(self) -> None:  # noqa: N802
+        path = urllib.parse.urlparse(self.path).path
+        srv = self.server_ref
+        if path != "/v1/lease":
+            return self._json(404, {"error": "not found"})
+        p = self._params()
+        released = srv.state.lease_release(p.get("fp", ""),
+                                           p.get("holder", ""))
+        srv.state.bump("lease_release")
+        return self._json(200, {"released": released})
 
 
 class ArtifactServer:
@@ -220,7 +300,7 @@ class ArtifactServer:
         counts = self.state.snapshot()
         lines = [
             "# HELP tpujob_artifact_server_requests_total artifact-store "
-            "server operations (fetch/publish), by op",
+            "server operations (fetch/publish/lease), by op",
             "# TYPE tpujob_artifact_server_requests_total counter",
         ]
         lines += ['tpujob_artifact_server_requests_total{op="%s"} %d'
@@ -230,7 +310,7 @@ class ArtifactServer:
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(
-        description="tpujob artifact store server")
+        description="tpujob fleet compile-artifact store server")
     ap.add_argument("--port", type=int, default=8083)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--store-dir", default="",

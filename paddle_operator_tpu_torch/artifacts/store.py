@@ -1,26 +1,40 @@
 """The artifact store's client: content-addressed, CRC-pinned bundles in
-two tiers, the port's copy of ``paddle_operator_tpu/artifacts/store.py``
-less its compile leases.
+two tiers and the compile leases that arbitrate who builds, the port's
+copy of ``paddle_operator_tpu/artifacts/store.py``.
 
 * **local**: a shared directory (``TPUJOB_ARTIFACT_STORE``, e.g. a
   ReadWriteMany volume every host mounts); bundles are published with
   the tmp + ``os.replace`` discipline, so readers never see a torn file;
 * **remote**: the operator-served HTTP endpoint (``TPUJOB_ARTIFACT_URL``,
   :mod:`.server`): ``GET/PUT /v1/artifact`` move whole bundles, or one
-  member of one (``member=``).
+  member of one (``member=``), and ``/v1/lease`` arbitrates who compiles.
 
 Every fetch is verified (:mod:`.bundle`): CRC-pinned members, a
 fingerprint-matched header. A poisoned, torn or stale artifact is
 rejected, counted, and reported as a miss; a tier that is down degrades
 to a miss with one warning. Publishes are best-effort and idempotent.
 
-Counters live under ``_lock``; file and HTTP I/O happen outside it.
+**Compile lease / singleflight**: a cold fleet must not stampede nvcc.
+``acquire_compile_lease`` grants at most one holder per fingerprint (an
+in-process inflight table, plus a lease file in the local tier or an
+HTTP lease in the remote one); peers ``wait_fetch`` with a bounded
+deadline. A dead leaseholder cannot wedge the fleet: leases carry TTL
+deadlines (``TPUJOB_ARTIFACT_LEASE_TTL``), an expired lease is broken by
+the next acquirer, and every waiter's loop is bounded by
+``TPUJOB_ARTIFACT_WAIT_S``: on timeout the peer builds itself (duplicate
+work, never a hang; publishes are atomic and idempotent).
+
+Counters and the inflight table live under ``_lock``; file and HTTP I/O
+happen outside it.
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import logging
 import os
+import socket
 import threading
 import time
 import urllib.error
@@ -36,6 +50,17 @@ log = logging.getLogger("tpujob.artifacts")
 
 TIERS = ("local", "remote")
 
+#: monotone per-process nonce for lease tokens (itertools.count is atomic
+#: under the GIL)
+_token_counter = itertools.count()
+
+#: lease TTL: how long one compiler may hold the exclusive right to build
+#: a fingerprint before peers break the lease
+DEFAULT_LEASE_TTL_S = 300.0
+#: how long a peer waits for the leaseholder's publish before giving up
+#: and building itself (the bounded-deadline guarantee)
+DEFAULT_WAIT_S = 240.0
+DEFAULT_POLL_S = 0.2
 DEFAULT_HTTP_TIMEOUT_S = 5.0
 #: transient HTTP failures (connection reset, 5xx) get this many RETRIES
 #: on top of the first attempt: one dropped packet mid-migration must not
@@ -71,15 +96,47 @@ def _env_float(name: str, default: float) -> float:
         return default
 
 
+class CompileLease:
+    """The result of one lease-acquire attempt. ``granted`` means THIS
+    caller holds the exclusive right to build the fingerprint and must
+    :meth:`release` after publishing (or failing)."""
+
+    def __init__(self, store: "ArtifactStore", fingerprint: str,
+                 granted: bool, token: str) -> None:
+        self._store = store
+        self.fingerprint = fingerprint
+        self.granted = granted
+        self._token = token
+        self._released = False
+
+    def release(self) -> None:
+        if self._released or not self.granted:
+            return
+        self._released = True
+        self._store._release_lease(self.fingerprint, self._token)
+
+
 class ArtifactStore:
     """One process's client to the configured tiers. Construct through
     :func:`get_store` (an env-keyed singleton), not directly."""
 
     def __init__(self, local_dir: str = "", url: str = "",
+                 lease_ttl_s: Optional[float] = None,
+                 wait_s: Optional[float] = None,
+                 poll_s: Optional[float] = None,
                  http_timeout_s: Optional[float] = None,
                  http_retries: Optional[int] = None) -> None:
         self.local_dir = local_dir
         self.url = url.rstrip("/")
+        self.lease_ttl_s = (lease_ttl_s if lease_ttl_s is not None else
+                            _env_float("TPUJOB_ARTIFACT_LEASE_TTL",
+                                       DEFAULT_LEASE_TTL_S))
+        self.wait_s = (wait_s if wait_s is not None else
+                       _env_float("TPUJOB_ARTIFACT_WAIT_S", DEFAULT_WAIT_S))
+        self.poll_s = max(0.001,
+                          poll_s if poll_s is not None else
+                          _env_float("TPUJOB_ARTIFACT_POLL_S",
+                                     DEFAULT_POLL_S))
         self.http_timeout_s = (http_timeout_s if http_timeout_s is not None
                                else _env_float("TPUJOB_ARTIFACT_HTTP_TIMEOUT",
                                                DEFAULT_HTTP_TIMEOUT_S))
@@ -88,12 +145,24 @@ class ArtifactStore:
             _env_float("TPUJOB_ARTIFACT_HTTP_RETRIES",
                        DEFAULT_HTTP_RETRIES)))
         self.retry_backoff_s = DEFAULT_RETRY_BACKOFF_S
+        # hostname:pid:nonce: the nonce tells store instances apart, so a
+        # same-holder refresh can only come from THIS client
+        self._token = "%s:%d:%d" % (socket.gethostname(), os.getpid(),
+                                    next(_token_counter))
         self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        # fingerprints whose compile lease THIS process holds (the
+        # in-process half of singleflight: a second thread building the
+        # same library waits then fetches, it does not build in parallel)
+        self._inflight: set = set()
         self._stats: Dict[str, float] = {}
         for tier in TIERS:
             for k in ("hits", "misses", "publishes", "poisoned",
                       "fetch_seconds", "retries"):
                 self._stats["%s_%s" % (k, tier)] = 0
+        for k in ("lease_granted", "lease_waited", "lease_timeout",
+                  "lease_broken"):
+            self._stats[k] = 0
         # serializes this process's local-tier read-merge-replace so two
         # threads cannot drop each other's members
         self._pub_lock = threading.Lock()
@@ -123,6 +192,9 @@ class ArtifactStore:
 
     def _bundle_path(self, fingerprint: str) -> str:
         return os.path.join(self.local_dir, fingerprint + bundle.SUFFIX)
+
+    def _lease_path(self, fingerprint: str) -> str:
+        return os.path.join(self.local_dir, fingerprint + ".lease")
 
     def _local_fetch(self, fingerprint: str, member: Optional[str] = None
                      ) -> Optional[Dict[str, bytes]]:
@@ -165,6 +237,84 @@ class ArtifactStore:
                                 "local publishes disabled",
                                 self.local_dir, e)
                 return False
+
+    def _local_lease_acquire(self, fingerprint: str) -> bool:
+        path = self._lease_path(fingerprint)
+        payload = json.dumps({"holder": self._token,
+                              "deadline": time.time() + self.lease_ttl_s}
+                             ).encode()
+        for _ in range(2):
+            try:
+                os.makedirs(self.local_dir, exist_ok=True)
+                fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+                try:
+                    os.write(fd, payload)
+                finally:
+                    os.close(fd)
+                return True
+            except FileExistsError:
+                if not self._local_lease_expired(path):
+                    return False
+                # the holder died (or wedged past its TTL): break the
+                # lease ATOMICALLY by renaming the inode aside; the source
+                # vanishes for every other breaker, so exactly one rename
+                # succeeds (a bare remove + create would let breaker B's
+                # remove delete the lease breaker A just created)
+                stale = "%s.stale.%d.%d" % (path, os.getpid(),
+                                            next(_token_counter))
+                try:
+                    os.rename(path, stale)
+                except OSError:
+                    return False  # someone else broke it; they hold it
+                if not self._local_lease_expired(stale):
+                    # we took a LIVE lease: a peer broke the dead one and
+                    # made a fresh one before our rename landed. Put it
+                    # back (os.link never overwrites, so a newer lease at
+                    # path wins) and report "held"
+                    try:
+                        os.link(stale, path)
+                    except OSError:
+                        pass
+                    try:
+                        os.remove(stale)
+                    except OSError:
+                        pass
+                    return False
+                self._bump("lease_broken")
+                try:
+                    os.remove(stale)
+                except OSError:
+                    pass
+                # loop: retry the exclusive create (another FRESH
+                # acquirer may still beat us; O_EXCL arbitrates)
+            except OSError:
+                return False  # unwritable store: no singleflight, no wedge
+        return False
+
+    @staticmethod
+    def _local_lease_expired(path: str) -> bool:
+        try:
+            with open(path) as fh:
+                info = json.load(fh)
+            return float(info.get("deadline", 0)) <= time.time()
+        except (OSError, ValueError, TypeError, AttributeError):
+            return True  # a torn or garbage lease file counts as dead
+
+    def _local_lease_state(self, fingerprint: str) -> str:
+        path = self._lease_path(fingerprint)
+        if not os.path.exists(path):
+            return "free"
+        return "expired" if self._local_lease_expired(path) else "held"
+
+    def _local_lease_release(self, fingerprint: str, token: str) -> None:
+        path = self._lease_path(fingerprint)
+        try:
+            with open(path) as fh:
+                info = json.load(fh)
+            if info.get("holder") == token:
+                os.remove(path)
+        except (OSError, ValueError, AttributeError):
+            pass
 
     # -- remote tier -----------------------------------------------------
 
@@ -228,9 +378,38 @@ class ArtifactStore:
                              body=bundle.pack(fingerprint, members))
         return code == 200
 
+    def _remote_lease_acquire(self, fingerprint: str) -> Tuple[bool, bool]:
+        """(granted, broke): ``broke`` reports a dead holder's expired
+        lease being taken over, so the ``broken`` outcome counts on the
+        remote tier too."""
+        body = json.dumps({"fp": fingerprint, "holder": self._token,
+                           "ttl": self.lease_ttl_s}).encode()
+        code, data = self._http("POST", "/v1/lease", body=body)
+        if code != 200:
+            return False, False
+        try:
+            d = json.loads(data)
+            return bool(d.get("granted")), bool(d.get("broke"))
+        except (ValueError, AttributeError):
+            return False, False
+
+    def _remote_lease_state(self, fingerprint: str) -> str:
+        code, data = self._http("GET", "/v1/lease?fp=%s" % fingerprint)
+        if code != 200:
+            return "free"
+        try:
+            return str(json.loads(data).get("state", "free"))
+        except (ValueError, AttributeError):
+            return "free"
+
+    def _remote_lease_release(self, fingerprint: str, token: str) -> None:
+        self._http("DELETE",
+                   "/v1/lease?fp=%s&holder=%s" % (fingerprint, token))
+
     # -- the public surface ---------------------------------------------
 
-    def fetch(self, fingerprint: str, member: Optional[str] = None
+    def fetch(self, fingerprint: str, record: bool = True,
+              member: Optional[str] = None
               ) -> Tuple[Optional[Dict[str, bytes]], Optional[str]]:
         """Try every configured tier in order (local first: it is the
         cheap one). Returns ``(members, tier)`` on a verified hit,
@@ -238,7 +417,8 @@ class ArtifactStore:
         bundle member. Poisoned artifacts are rejected, counted per tier
         and reported as misses; a tier that fails degrades to a miss with
         one warning and never raises. Fetch seconds accumulate for every
-        outcome."""
+        outcome; ``record=False`` (a waiter's polls) leaves the hit and
+        miss counts alone."""
         for tier, impl in (("local", self._local_fetch),
                            ("remote", self._remote_fetch)):
             if not self._tier_configured(tier):
@@ -258,8 +438,10 @@ class ArtifactStore:
                 self._bump_locked("fetch_seconds_%s" % tier, dt)
                 if poisoned is not None:
                     self._bump_locked("poisoned_%s" % tier)
-                self._bump_locked("hits_%s" % tier if members is not None
-                                  else "misses_%s" % tier)
+                if record:
+                    self._bump_locked(
+                        "hits_%s" % tier if members is not None
+                        else "misses_%s" % tier)
             if poisoned is not None:
                 log.warning("rejected poisoned artifact %s from %s tier: %s",
                             fingerprint[:12], tier, poisoned)
@@ -275,7 +457,7 @@ class ArtifactStore:
         configured tier. Best-effort and idempotent: a tier that fails
         costs a fallback somewhere, never this process's run (a refused
         PUT, such as a bundle over ``MAX_BUNDLE_BYTES``, is not
-        counted)."""
+        counted). Wakes any in-process waiter."""
         if not members:
             return
         if self.local_dir and self._local_publish(fingerprint, members):
@@ -289,6 +471,104 @@ class ArtifactStore:
                 ok = False
             if ok:
                 self._bump("publishes_remote")
+        with self._lock:
+            self._cond.notify_all()
+
+    def note_first_call_reject(self, tier: Optional[str]) -> None:
+        """The first use of a store-served library failed: a CRC-valid
+        but wrong artifact (a missing symbol, a launch error). Counted with
+        the poisoned rejects: same posture, later trigger."""
+        self._bump("poisoned_%s" % (tier or "local"))
+
+    # -- lease / singleflight -------------------------------------------
+
+    def _lease_domain(self) -> str:
+        """The tier that arbitrates compile leases: the remote one when
+        configured (it spans the whole fleet), else the shared local
+        directory."""
+        return "remote" if self.url else "local"
+
+    def acquire_compile_lease(self, fingerprint: str) -> CompileLease:
+        """At most one granted lease per fingerprint across the lease
+        domain (and across the threads of this process). Not granted
+        means someone else is building: wait then fetch with a bounded
+        deadline, re-trying the acquire when the lease dies."""
+        with self._lock:
+            if fingerprint in self._inflight:
+                self._bump_locked("lease_waited")
+                return CompileLease(self, fingerprint, False, self._token)
+        broke = False
+        if self._lease_domain() == "remote":
+            try:
+                granted, broke = self._remote_lease_acquire(fingerprint)
+            except Exception as e:
+                self._warn_once("lease_remote",
+                                "artifact lease endpoint unavailable "
+                                "(%s); building without singleflight", e)
+                granted = True  # no arbiter: never block on its absence
+        else:
+            # (_local_lease_acquire bumps lease_broken itself)
+            granted = self._local_lease_acquire(fingerprint)
+        with self._lock:
+            if broke:
+                self._bump_locked("lease_broken")
+            if granted:
+                self._inflight.add(fingerprint)
+                self._bump_locked("lease_granted")
+            else:
+                self._bump_locked("lease_waited")
+        return CompileLease(self, fingerprint, granted, self._token)
+
+    def _release_lease(self, fingerprint: str, token: str) -> None:
+        if self._lease_domain() == "remote":
+            try:
+                self._remote_lease_release(fingerprint, token)
+            except Exception:
+                pass  # the TTL reclaims it
+        else:
+            self._local_lease_release(fingerprint, token)
+        with self._lock:
+            self._inflight.discard(fingerprint)
+            self._cond.notify_all()
+
+    def lease_state(self, fingerprint: str) -> str:
+        """``held`` | ``expired`` | ``free`` in the lease domain (the
+        in-process table counts as held)."""
+        with self._lock:
+            if fingerprint in self._inflight:
+                return "held"
+        if self._lease_domain() == "remote":
+            try:
+                return self._remote_lease_state(fingerprint)
+            except Exception:
+                return "free"
+        return self._local_lease_state(fingerprint)
+
+    def wait_fetch(self, fingerprint: str, deadline_monotonic: float
+                   ) -> Tuple[Optional[Dict[str, bytes]], Optional[str]]:
+        """Wait for someone else's publish: poll-fetch until the bounded
+        deadline. Returns early (a miss) when the lease frees or expires,
+        so the caller can re-try the acquire: a dead leaseholder costs its
+        TTL, never the whole wait, and never a wedge. A lease seen free
+        is followed by one more fetch: a publish precedes its release, so
+        a holder that finished between the poll and the state is served
+        here, not granted to a second builder."""
+        while True:
+            members, tier = self.fetch(fingerprint, record=False)
+            if members is not None:
+                self._bump("hits_%s" % tier)
+                return members, tier
+            if time.monotonic() >= deadline_monotonic:
+                self._bump("lease_timeout")
+                return None, None
+            if self.lease_state(fingerprint) != "held":
+                members, tier = self.fetch(fingerprint, record=False)
+                if members is not None:
+                    self._bump("hits_%s" % tier)
+                # else the holder is gone: the caller re-acquires
+                return members, tier
+            with self._lock:
+                self._cond.wait(timeout=self.poll_s)
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +614,7 @@ def reset_for_tests() -> None:
 # ---------------------------------------------------------------------------
 
 #: (family, help, type, stats key prefix) of the client's exposition:
-#: the reference's families and text, less the compile-lease family
+#: the reference's families and text
 _FAMILIES = (
     ("tpujob_artifact_hits_total",
      "verified artifact fetches served, by tier", "counter", "hits"),
@@ -371,6 +651,16 @@ def metrics_text() -> str:
             '%s{tier="%s"} %d'
         lines += [fmt % (family, t, s.get("%s_%s" % (key, t), 0))
                   for t in TIERS]
+    lines += [
+        "# HELP tpujob_artifact_lease_total compile-lease outcomes "
+        "(granted = this process compiles; waited = a peer holds the "
+        "lease; timeout = bounded deadline hit, compiled anyway; broken "
+        "= dead leaseholder's lease taken over)",
+        "# TYPE tpujob_artifact_lease_total counter",
+    ]
+    lines += ['tpujob_artifact_lease_total{outcome="%s"} %d'
+              % (o, s.get("lease_%s" % o, 0))
+              for o in ("granted", "waited", "timeout", "broken")]
     return "\n".join(lines) + "\n"
 
 
@@ -386,6 +676,7 @@ def stats_block() -> Dict[str, float]:
 
 
 __all__ = [
-    "ArtifactStore", "PoisonedArtifactError", "TIERS", "enabled",
+    "ArtifactStore", "CompileLease", "PoisonedArtifactError", "TIERS",
+    "enabled",
     "get_store", "metrics_text", "reset_for_tests", "stats_block",
 ]

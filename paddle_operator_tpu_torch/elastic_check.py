@@ -59,6 +59,7 @@ import torch
 
 from paddle_operator_tpu_torch import bridge, dp_check, runner
 from paddle_operator_tpu_torch.data import step_generator
+from paddle_operator_tpu_torch.device import deterministic_algorithms
 from paddle_operator_tpu_torch.elastic.store import connect as kv_connect
 from paddle_operator_tpu_torch.elastic.sync import JobRef, bump_epoch, \
     epoch_key, np_key
@@ -265,7 +266,7 @@ def run_scenario(sc: dict, out_dir: str) -> Dict[str, Any]:
     if sc["model"].startswith("gpt2"):
         # the embedding's index backward is atomic otherwise; a restart
         # must give the uninterrupted run's bits
-        torch.use_deterministic_algorithms(True)
+        deterministic_algorithms(True)
         torch.utils.deterministic.fill_uninitialized_memory = False
     zero_counts()
     t0 = time.perf_counter()

@@ -64,7 +64,8 @@ import torch.distributed as dist
 
 from paddle_operator_tpu_torch import bridge, dp_check
 from paddle_operator_tpu_torch.data import process_shard, step_generator
-from paddle_operator_tpu_torch.device import resolve_device
+from paddle_operator_tpu_torch.device import deterministic_algorithms, \
+    resolve_device
 from paddle_operator_tpu_torch.models import bert, gpt
 from paddle_operator_tpu_torch.ops import attention, moe, optim
 from paddle_operator_tpu_torch.parallel import build_train_step, \
@@ -353,7 +354,7 @@ def card_setting(deterministic: bool = True):
     cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = \
         False, True, False
     if deterministic:
-        torch.use_deterministic_algorithms(True)
+        deterministic_algorithms(True)
         torch.utils.deterministic.fill_uninitialized_memory = False
     os.environ["TPUJOB_MOE_FUSED"] = "1"
     try:
@@ -361,7 +362,7 @@ def card_setting(deterministic: bool = True):
     finally:
         (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
          cudnn.deterministic, cudnn.benchmark) = saved[:4]
-        torch.use_deterministic_algorithms(saved[4])
+        deterministic_algorithms(saved[4])
         if saved[5] is None:
             os.environ.pop("TPUJOB_MOE_FUSED", None)
         else:

@@ -58,7 +58,8 @@ import numpy as np
 import torch
 
 from paddle_operator_tpu_torch import bridge, launch, ps
-from paddle_operator_tpu_torch.device import resolve_device
+from paddle_operator_tpu_torch.device import deterministic_algorithms, \
+    resolve_device
 from paddle_operator_tpu_torch.examples import train_wide_deep_ps
 from paddle_operator_tpu_torch.models import deepfm, wide_deep
 
@@ -200,7 +201,7 @@ def trainer_main(spec_path: str) -> int:
     if base.role != "TRAINER":
         raise SystemExit("ps_check runs trainers; pservers run the example")
     if spec.get("deterministic"):
-        torch.use_deterministic_algorithms(True)
+        deterministic_algorithms(True)
     for sc in spec["scenarios"]:
         out = _run_trainer(sc, spec, base.worker_id, base.num_workers)
         np.savez(os.path.join(spec["out"], "%s.trainer%d.npz"
@@ -342,7 +343,9 @@ def launch_world(spec: dict, n_trainers: int = 2, n_servers: int = 2,
     servers: Dict[str, list] = {}
     procs: List[subprocess.Popen] = []
     try:
-        # every pserver, then the trainers once each serves its endpoint
+        # every pserver and the trainers together: a trainer's client
+        # retries a refused connection (a pserver not listening yet), so
+        # the trainers' start overlaps the pservers'
         pending = []
         for sc in spec["scenarios"]:
             servers[sc["name"]] = []
@@ -357,8 +360,6 @@ def launch_world(spec: dict, n_trainers: int = 2, n_servers: int = 2,
                 servers[sc["name"]].append(p)
                 procs.append(p)
                 pending.append((ep, p, log))
-        for ep, p, log in pending:
-            _wait_serving(ep, p, log)
         trainers = []
         for w in range(n_trainers):
             tenv = dict(penv, TRAINING_ROLE="TRAINER",
@@ -371,6 +372,8 @@ def launch_world(spec: dict, n_trainers: int = 2, n_servers: int = 2,
                        os.path.join(out, "trainer%d.log" % w))
             trainers.append(p)
             procs.append(p)
+        for ep, p, log in pending:
+            _wait_serving(ep, p, log)
         deadline = time.monotonic() + timeout
         for w, p in enumerate(trainers):
             try:

@@ -62,8 +62,16 @@ events) and its examples/s against its own baseline
 and times every step on the device's clock (``result["hardware"]``);
 and the run's wall time splits into goodput and badput by cause
 (``restore``, ``data_stall``, ``checkpoint``, ``compile``: the seconds
-:mod:`.ops._kernels` spent in nvcc during the run) in a conserving
-``result["goodput_detail"]``. ``TPUJOB_PROFILE_DIR`` takes a
+the compile cache spent in nvcc during the run) in a conserving
+``result["goodput_detail"]``.
+
+The compile cache (:mod:`.compile_cache`): every kernel library comes
+down its ladder (memo, local, fleet, built), and ``result
+["compile_cache"]`` is its :func:`~.compile_cache.startup_block`. A
+cycle's counted first step keeps its cost under the step's fingerprint
+(in ``TPUJOB_COMPILE_CACHE_DIR``, where it is set): a restart of the same
+step reads it back and runs its first step uncounted (``result["compile_cache"]["step_cost"]``: ``cache`` or
+``counted`` a cycle). ``TPUJOB_PROFILE_DIR`` takes a
 ``torch.profiler`` window (:class:`.utils.trace.profile_steps`).
 """
 
@@ -81,7 +89,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from . import bridge
+from . import bridge, compile_cache
 from .artifacts import get_store
 from .artifacts.state import fetch_state, publish_state, state_fingerprint
 from .data import PREFETCH, DeferredMetrics, ShardedLoader, \
@@ -89,11 +97,10 @@ from .data import PREFETCH, DeferredMetrics, ShardedLoader, \
 from .device import DeviceLike, resolve_device
 from .launch import ElasticAgent, ElasticWorld, LaunchConfig, detect_env, \
     initialize_distributed, shutdown_distributed
-from .obs.hardware import HardwarePlane, StepClock, analytic_cost, \
-    resolve_chip, step_cost_of
+from .obs.hardware import HardwarePlane, StepClock, StepCost, \
+    analytic_cost, resolve_chip, step_cost_of
 from .obs.worker import StepProfiler, StragglerDetector, \
     ThroughputBaseline, WorkerMetricsServer, median
-from .ops import _kernels
 from .ops.optim import Optimizer
 from .parallel import build_train_step, collectives
 from .parallel.mesh import Mesh, make_mesh, world_size
@@ -292,7 +299,8 @@ class _Observer:
             self.hw.set_cost(analytic_cost(job.flops_per_step,
                                            job.bytes_per_step or 0.0))
         self.clock = StepClock(self.hw, dev)
-        self._build_s0 = _kernels.build_seconds
+        self._compile_s0 = compile_cache.stats()["compile_seconds"]
+        self.step_cost_sources: list = []
         result["straggler_events"] = 0
         result["backend_degraded_events"] = 0
 
@@ -434,7 +442,11 @@ class _Observer:
         result["step_profile"] = self.profiler.stats()
         self.hw.sample_hbm()
         result["hardware"] = self.hw.emit_trace()
-        self.add_badput("compile", _kernels.build_seconds - self._build_s0)
+        block = compile_cache.startup_block()
+        block["step_cost"] = list(self.step_cost_sources)
+        result["compile_cache"] = block
+        self.add_badput("compile",
+                        block["compile_seconds"] - self._compile_s0)
         wall = self.wall
         if wall <= 0:
             return
@@ -622,6 +634,36 @@ def _publish_move(job: TrainJob, intent: dict, step: int,
         result["migrate_published"] = {"fp": fp, "step": step}
 
 
+def _cached_step_cost(fn: Callable, state: Any, batch: Any,
+                      mesh: Optional[Mesh], span: int, job: TrainJob
+                      ) -> Tuple[str, Optional[StepCost]]:
+    """The step-cost rung: the step's fingerprint (over its function,
+    the shapes of ``(state, batch)``, the steps a call and the job's bytes
+    figure, and the mesh) and the cost a cycle of the same step saved
+    under it, or None (a miss; a torn or malformed sidecar is a miss).
+    Telemetry never takes the run down: a fingerprint that cannot be
+    taken is a miss that saves nothing."""
+    try:
+        key = compile_cache.step_fingerprint(
+            fn, (state, batch), mesh=mesh,
+            config={"steps_per_call": span,
+                    "bytes_per_step": job.bytes_per_step or 0.0})
+    except Exception as e:
+        log.warning("step fingerprint unavailable (%s); counting the "
+                    "step", e)
+        return "", None
+    raw = compile_cache.load_step_cost(key)
+    try:
+        if raw and float(raw.get("flops") or 0) > 0:
+            return key, StepCost(float(raw["flops"]),
+                                 max(0.0, float(raw.get("bytes") or 0.0)),
+                                 str(raw.get("source") or "flop_counter"))
+    except (TypeError, ValueError):
+        log.warning("step-cost sidecar %s unreadable; counting the step",
+                    key[:12])
+    return key, None
+
+
 def _cycle_mesh(axes: Optional[Dict[str, int]],
                 elastic: bool = False) -> Optional[Mesh]:
     """The mesh of one cycle over the current world: ``axes``, or dp over
@@ -798,19 +840,32 @@ def _train(job: TrainJob, cfg: LaunchConfig, dev: torch.device,
         obs.add_badput("data_stall", wait)
         if t_dispatched is not None:
             times.add("dispatch_gap", time.perf_counter() - t_dispatched)
+        cached, key = None, ""
+        if not counted:
+            key, cached = _cached_step_cost(fn, state, batch, mesh, span, job)
         c0 = collectives.host_seconds()
         begun = obs.clock.begin()
         t_d0 = time.perf_counter()
         with times.timed("step_dispatch"):
-            if counted:
+            if counted or cached is not None:
                 out = fn(state, batch)
             else:
                 out, cost = step_cost_of(
                     fn, state, batch, steps_per_call=span,
                     bytes_per_step=job.bytes_per_step or 0.0)
-                obs.hw.set_cost(cost)
-                counted = True
         t_dispatched = time.perf_counter()
+        if not counted:
+            counted = True
+            if cached is not None:
+                obs.hw.set_cost(cached)
+                obs.step_cost_sources.append("cache")
+            else:
+                obs.hw.set_cost(cost)
+                obs.step_cost_sources.append("counted")
+                if cost is not None and key:
+                    compile_cache.save_step_cost(key, {
+                        "flops": cost.flops, "bytes": cost.bytes_accessed,
+                        "source": cost.source})
         obs.clock.end(begun, span)
         waited = collectives.host_seconds() - c0
         phases = {"data_wait": wait,

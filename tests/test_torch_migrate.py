@@ -319,9 +319,9 @@ def test_reference_checkpoint_moves_into_the_port(tmp_path, monkeypatch):
 def test_client_exposition_matches_reference_less_leases(tmp_path,
                                                          monkeypatch):
     """The port's ``tpujob_artifact_*`` families, after one publish, a
-    hit and a miss, are the reference's text less its compile-lease
-    family; the fetch-seconds gauge is a wall time, so its samples are
-    held by their labels alone."""
+    hit and a miss, are the reference's text, its compile-lease family
+    included since the port has the leases; the fetch-seconds gauge is a
+    wall time, so its samples are held by their labels alone."""
     j = _jax()
     monkeypatch.setenv("TPUJOB_ARTIFACT_STORE", str(tmp_path / "store"))
     monkeypatch.delenv("TPUJOB_ARTIFACT_URL", raising=False)
@@ -338,8 +338,7 @@ def test_client_exposition_matches_reference_less_leases(tmp_path,
                 "tpujob_artifact_fetch_seconds{") else line
                 for line in lines]
 
-        ref = [line for line in j["art"].metrics_text().splitlines()
-               if "lease" not in line]
+        ref = j["art"].metrics_text().splitlines()
         assert text(metrics_text().splitlines()) == text(ref)
     finally:
         reset_for_tests()

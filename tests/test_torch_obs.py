@@ -24,7 +24,7 @@ from paddle_operator_tpu_torch import dp_check
 from paddle_operator_tpu_torch.data import ShardedLoader
 from paddle_operator_tpu_torch.models import gpt as tgpt
 from paddle_operator_tpu_torch.obs import worker as tworker
-from paddle_operator_tpu_torch.ops import _kernels
+from paddle_operator_tpu_torch import compile_cache
 from paddle_operator_tpu_torch.ops import optim as topt
 from paddle_operator_tpu_torch import runner as trunner
 from paddle_operator_tpu_torch.runner import TrainJob, run_training
@@ -278,8 +278,9 @@ def test_runner_badput_causes_conserve(tmp_path, monkeypatch):
     run_training(_job(total=2, checkpoint_every=2, checkpoint_dir=d))
 
     def loss_fn(params, batch):
-        monkeypatch.setattr(_kernels, "build_seconds",
-                            _kernels.build_seconds + 0.25)
+        stats = compile_cache._state.stats
+        monkeypatch.setitem(stats, "compile_seconds",
+                            stats["compile_seconds"] + 0.25)
         return _loss(params, batch)
 
     res = run_training(_job(total=4, checkpoint_every=2, checkpoint_dir=d,
